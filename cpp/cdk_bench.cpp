@@ -10,7 +10,7 @@
 //
 // Note on scope: these are the TRUSTED scalar forms (the reference's "CPU
 // reference" role). The accelerator-optimized variants of this framework
-// are the XLA/Pallas TPU kernels — device code on TPU cannot be C++.
+// are XLA programs and the CUDA MPDATA kernel (cdk/kernels/).
 
 #include <chrono>
 #include <cstdio>

@@ -1,7 +1,7 @@
 // Native host layer: deterministic generators + independent C++ oracle
 // kernels, exported through a C ABI for ctypes.
 //
-// This is the TPU-native equivalent of the reference's native components
+// This is the equivalent of the reference's native components
 // (SURVEY §2b): where cke.cpp/cke_impl{1,2}.cpp marshal Fortran arrays into
 // device views and provide a second implementation to verify against
 // (nested_loops/cke.cpp:24-120, cke_impl1.cpp:11-48), this library provides
@@ -13,11 +13,12 @@
 //   - independent scalar C++ implementations of all three kernels, used by
 //     the test-suite as a second, JAX-free oracle (the role yakl_check and
 //     the in-run CPU references play in the reference suite);
-//   - lane-alignment padding (the TPU analog of nvldim pack padding,
+//   - trailing-dimension padding (the analog of nvldim pack padding,
 //     nested_vars.F90:94-100).
 //
-// Device kernels cannot be C++ on TPU; the device-side native path is
-// Pallas (cdk_tpu/kernels/*/pallas_*.py).
+// The device-side native path is the CUDA MPDATA kernel
+// (cdk/kernels/mpdata/cuda/), whose stage functions this library also
+// runs serially on the host (mpdata_host.cpp) for the CPU tests.
 
 #include <algorithm>
 #include <cmath>
@@ -58,7 +59,7 @@ void cdk_uniform_fill(unsigned long long seed, long long n, double* out) {
 // ------------------------------------------------------------- layout ----
 
 // Pad the trailing (lane) dimension of an (rows, d) array to `dpad`
-// (zero-fill) — the TPU analog of the reference's nvldim pack padding.
+// (zero-fill) — the analog of the reference's nvldim pack padding.
 void cdk_pad_lanes(long long rows, long long d, long long dpad,
                    const double* in, double* out) {
   for (long long r = 0; r < rows; ++r) {
@@ -72,7 +73,7 @@ void cdk_pad_lanes(long long rows, long long d, long long dpad,
 // Weak tensor-HV Laplacian, one (np x np) level at a time, scalar loops.
 // Same math as biharmonic_wk_scalar_cpu (biharmonic_wk_kernel.F90:100-202):
 // gradient_sphere -> tensorVisc contraction -> divergence_sphere_wk.
-// Layouts (C-order, matching cdk_tpu.kernels.biharmonic.problem):
+// Layouts (C-order, matching cdk.kernels.biharmonic.problem):
 //   dvv[np][np] as [i][l]; dinv/tensorvisc[e][i][j][2][2]; spheremp[e][i][j];
 //   qtens[e][q][k][i][j].
 void cdk_biharmonic_ref(int nelemd, int qsize, int nlev, int np,
@@ -136,7 +137,7 @@ void cdk_biharmonic_ref(int nelemd, int qsize, int nlev, int np,
 
 // Two-application biharmonic with ring-DSS assembly between — the HOMME
 // structure whose exchange the miniapp drops (SURVEY §5 deferred DSS).
-// Topology/assembly per cdk_tpu.kernels.biharmonic.dss: element e's
+// Topology/assembly per cdk.kernels.biharmonic.dss: element e's
 // j=np-1 GLL column is element (e+1)%nelemd's j=0 column; assembled dof =
 // (sum of sharers) / (sum of sharers' spheremp); interior dof = s/sp.
 void cdk_biharmonic_dss_ref(int nelemd, int qsize, int nlev, int np,
@@ -194,7 +195,7 @@ void cdk_biharmonic_dss_ref(int nelemd, int qsize, int nlev, int np,
 }
 
 // Two-application biharmonic with the 2-D TORUS DSS between — edges in
-// both GLL directions plus 4-way corner dofs (cdk_tpu.kernels.biharmonic
+// both GLL directions plus 4-way corner dofs (cdk.kernels.biharmonic
 // .dss2d semantics: elements on a periodic (ex, ey) grid, flattened
 // e = a*ey + b; assembled dof = Σ sharers / Σ sharers' spheremp,
 // evaluated as a j-direction edge sum followed by an i-direction edge
@@ -294,7 +295,7 @@ void cdk_biharmonic_dss2d_ref(int ex, int ey, int qsize, int nlev, int np,
 
 // Original-form edge flux (nested.F90:119-157): per-edge wgt/sgn column
 // temps, gather over contributing cells, k restricted to the cell's
-// [kmin, kmax] (0-based inclusive).  Layouts per cdk_tpu.kernels.cke.
+// [kmin, kmax] (0-based inclusive).  Layouts per cdk.kernels.cke.
 void cdk_cke_ref(int nedges, int ncells, int nvert, int nadv,
                  const int* adv_cells, const double* c1, const double* c3a,
                  const double* tracer, const double* ntf,
@@ -326,7 +327,7 @@ void cdk_cke_ref(int nedges, int ncells, int nvert, int nadv,
 
 // One MPDATA advect_scalar2D step, scalar loops, CPU/openacc_1 semantics
 // (advect_scalar2D_pushncols_openacc.F90:477-642).  Layouts per
-// cdk_tpu.kernels.mpdata.problem: (nslices, x, z) C-order, x offsets
+// cdk.kernels.mpdata.problem: (nslices, x, z) C-order, x offsets
 // f:+2, u:+1, w:+1 relative to Fortran i, z 0-based.
 void cdk_mpdata_ref(int ns, int nx, int nz, const double* f_in,
                     const double* u_in, const double* w_in,

@@ -5,11 +5,11 @@ variant parity through the harness, and the N-device ppermute decomposition
 import numpy as np
 import pytest
 
-from cdk_tpu.core.config import BiharmonicConfig, with_overrides
-from cdk_tpu.core.norms import rel_l2
-from cdk_tpu.dist import biharmonic as dist_bi
-from cdk_tpu.dist import mesh as meshmod
-from cdk_tpu.kernels.biharmonic import dss, problem
+from cdk.core.config import BiharmonicConfig, with_overrides
+from cdk.core.norms import rel_l2
+from cdk.dist import biharmonic as dist_bi
+from cdk.dist import mesh as meshmod
+from cdk.kernels.biharmonic import dss, problem
 
 CFG = BiharmonicConfig()  # nelemd=16
 
@@ -40,32 +40,34 @@ def test_dss_interior_is_mass_projection():
     )
 
 
-def test_dss_ring_grouped_matches_lane():
-    """The grouped-layout DSS (bd8 loop's zero-relayout form) computes the
-    same assembly as dss_ring_lane through the layout transforms."""
+def test_dss_ring_lane_matches_full_field():
+    """The lane-layout DSS (the fused forms' carry layout) computes the
+    same assembly as dss_ring on the (e, ..., i, j) reference layout."""
     import jax.numpy as jnp
 
-    rng = np.random.default_rng(7)
-    e, npg, ncol, g = 16, 4, 10, 8
-    npts = npg * npg
-    s_lane = jnp.asarray(rng.standard_normal((e, npts, ncol)),
-                         dtype=jnp.float32)
-    w = jnp.asarray(rng.uniform(0.5, 2.0, (e, npg, npg)), dtype=jnp.float32)
-    ref = dss.dss_ring_lane(s_lane, w, npg)
-    w5 = w.reshape(e // g, g, npg, npg)[..., None]
-    out = dss.dss_ring_grouped(
-        s_lane.reshape(e // g, g * npts, ncol), w5, g, npg
-    ).reshape(e, npts, ncol)
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(out))
+    from cdk.kernels.biharmonic.problem import (
+        from_lane_layout,
+        to_lane_layout,
+    )
+
+    cfg = with_overrides(BiharmonicConfig(), nelemd=6, nlev=3, qsize=2)
+    data = problem.init_data(cfg)
+    w = dss.dss_weights(data.spheremp)
+    ref = dss.dss_ring(data.qtens, w[:, None, None])
+    out = from_lane_layout(
+        dss.dss_ring_lane(to_lane_layout(data.qtens), jnp.asarray(w),
+                          cfg.np_gll), cfg)
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                               rtol=1e-15, atol=0)
 
 
 def test_dss_loops_match_chained_steps():
     """The variants' resident-layout loops == chaining their steps."""
-    from cdk_tpu.core.registry import _materialize, get
+    from cdk.core.registry import _materialize, get
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=8, nlev=4, qsize=2)
     data = problem.init_data(cfg)
-    for name in ("fused_operator", "fused_operator_bd8"):
+    for name in ("fused_operator", "fused_operator_tf32"):
         step2, aux, loop = _materialize(get("biharmonic_dss", name), cfg,
                                         data)
         assert loop is not None
@@ -78,17 +80,16 @@ def test_dss_loops_match_chained_steps():
         assert rel_l2(np.asarray(out), np.asarray(q)) < 1e-6, name
 
 
-@pytest.mark.parametrize("nelemd", [8, 5])  # g=8 and the odd-g fallback
-def test_dss_resident_chain_matches_chained_reference(nelemd):
-    """The VMEM-resident deep-halo DSS chain (k in-kernel steps over
-    element-ring windows) == chained reference steps at f64.  n=3 takes
-    the single-call remainder path, n=11 the scan(k=8)+remainder path.
+@pytest.mark.parametrize("nelemd", [8, 5])
+def test_dss_fused_loop_matches_chained_reference(nelemd):
+    """The fused-operator loop (the production champion's timed path) ==
+    chained reference steps at f64, for a short and a longer chain.
     (Multi-step f32 comparisons are vacuous here: the raw operator
     contracts ~1e-25/step, so chained fields underflow to exact zero —
     hence the f64 gate, like the suite's other f64 parity tests.)"""
     import dataclasses
 
-    from cdk_tpu.core.registry import _materialize, get
+    from cdk.core.registry import _materialize, get
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=nelemd, nlev=4,
                          qsize=2, dtype="float64")
@@ -96,7 +97,7 @@ def test_dss_resident_chain_matches_chained_reference(nelemd):
     ref_step, _, _ = _materialize(
         get("biharmonic_dss", "reference_jnp"), cfg, data)
     _, _, loop = _materialize(
-        get("biharmonic_dss", "fused_operator_bd8_resident"), cfg, data)
+        get("biharmonic_dss", "fused_operator"), cfg, data)
     for n in (3, 11):
         q = data.qtens
         for _ in range(n):
@@ -104,10 +105,10 @@ def test_dss_resident_chain_matches_chained_reference(nelemd):
         assert rel_l2(np.asarray(loop(data, n)), np.asarray(q)) < 1e-13, n
 
 
-def test_dss_resident_x3_single_step_f32():
-    """The x3 (manual hi/lo bf16) resident form passes the DSS-family f32
-    gate on one step."""
-    from cdk_tpu.core.registry import _materialize, get
+def test_dss_fused_single_step_f32():
+    """The exact-f32 fused form passes the DSS-family f32 gate (1e-6) on
+    one step; the TF32 form is fast-math and not held to it."""
+    from cdk.core.registry import _materialize, get
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=16, nlev=6, qsize=3,
                          dtype="float32")
@@ -115,28 +116,27 @@ def test_dss_resident_x3_single_step_f32():
     ref_step, _, _ = _materialize(
         get("biharmonic_dss", "reference_jnp"), cfg, data)
     step2, aux, _ = _materialize(
-        get("biharmonic_dss", "fused_operator_bd8_resident_x3"), cfg, data)
+        get("biharmonic_dss", "fused_operator"), cfg, data)
     e = rel_l2(np.asarray(step2(aux, data)),
                np.asarray(ref_step((), data)))
-    assert e < 5e-5, e
+    assert e < 1e-6, e
 
 
-@pytest.mark.parametrize("ndev,kstep", [(2, 8), (4, 4), (2, 3)])
-def test_dss_dist_kstep_matches_reference(ndev, kstep):
-    """Communication-avoiding dist DSS (B halo groups ring-exchanged once
-    per kstep resident in-kernel steps) == chained reference at f64."""
+@pytest.mark.parametrize("ndev,n", [(2, 8), (4, 4), (2, 3)])
+def test_dss_dist_loop_matches_chained_reference(ndev, n):
+    """The dist ring-DSS loop (boundary columns ppermuted every step) ==
+    chained reference at f64."""
     import dataclasses
 
-    from cdk_tpu.core.registry import _materialize, get
+    from cdk.core.registry import _materialize, get
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=32, nlev=4, qsize=2,
                          dtype="float64")
     data = problem.init_data(cfg)
     m = meshmod.make_mesh(ndev)
-    shard_inputs, loop, gather = dist_bi.make_dist_loop_dss_kstep(
-        cfg, m, kstep=kstep)
+    shard_inputs, _, gather = dist_bi.make_dist_step_dss(cfg, m)
+    loop = dist_bi.make_dist_loop_dss(cfg, m)
     q_s, aux = shard_inputs(data)
-    n = 2 * kstep
     out = gather(loop(q_s, aux, n))
 
     ref_step, _, _ = _materialize(
@@ -148,20 +148,20 @@ def test_dss_dist_kstep_matches_reference(ndev, kstep):
 
 
 def test_dss_variants_through_harness():
-    from cdk_tpu.harness import driver
+    from cdk.harness import driver
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=4, nlev=4, qsize=2)
     res = driver.run_kernel("biharmonic_dss", cfg, iters=2, trials=1,
                             quiet=True)
     names = {r.variant for r in res}
-    assert names >= {"reference_jnp", "fused_operator", "fused_operator_f32"}
+    assert names >= {"reference_jnp", "fused_operator"}
     assert all(r.ok for r in res), [(r.variant, r.metrics) for r in res]
 
 
 @pytest.mark.parametrize("ndev", [2, 8])
 @pytest.mark.parametrize("overlap", [False, True])
 def test_dss_decomposed_matches_single(ndev, overlap):
-    from cdk_tpu.kernels.biharmonic.dss import make_reference
+    from cdk.kernels.biharmonic.dss import make_reference
 
     data = problem.init_data(CFG)
     ref = np.asarray(make_reference(CFG)(data))
@@ -191,7 +191,7 @@ def test_dss_overlap_matches_serial_exactly():
 
 def test_dss_multistep_chain():
     """Chained dist steps (output feeds back) track the single-device chain."""
-    from cdk_tpu.kernels.biharmonic.dss import make_reference
+    from cdk.kernels.biharmonic.dss import make_reference
     import jax.numpy as jnp
     from dataclasses import replace
 
@@ -209,7 +209,7 @@ def test_dss_multistep_chain():
 
 
 def test_dss_dist_loop_matches_chained():
-    from cdk_tpu.kernels.biharmonic.dss import make_reference
+    from cdk.kernels.biharmonic.dss import make_reference
     from dataclasses import replace
 
     data = problem.init_data(CFG)
@@ -226,16 +226,11 @@ def test_dss_dist_loop_matches_chained():
     assert rel_l2(out_loop, np.asarray(q_ref)) < 1e-11
 
 
-@pytest.mark.parametrize("nelemd", [8, 5])  # g=8 and the odd-g fallback
-def test_dss_resident_sq_matches_chained_reference(nelemd):
-    """The precomposed-A² d-carry resident chain ((A·DSS·A)^n computed as
-    A·DSS·(A²·DSS)^(n-1)·A with one bd8 apply per inner step) == chained
-    reference at f64: the composition is exact algebra.  n=1 hits the
-    degenerate no-inner-step path, n=3 the single-call remainder, n=11
-    the scan(k=8)+remainder path."""
-    import dataclasses
-
-    from cdk_tpu.core.registry import _materialize, get
+@pytest.mark.parametrize("nelemd", [8, 5])
+def test_dss_fused_step_matches_reference_and_loop_n1(nelemd):
+    """One fused step == the reference at f64, and the loop's n=1 path
+    (a single scan iteration) == that step."""
+    from cdk.core.registry import _materialize, get
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=nelemd, nlev=4,
                          qsize=2, dtype="float64")
@@ -243,99 +238,32 @@ def test_dss_resident_sq_matches_chained_reference(nelemd):
     ref_step, _, _ = _materialize(
         get("biharmonic_dss", "reference_jnp"), cfg, data)
     step2, aux, loop = _materialize(
-        get("biharmonic_dss", "fused_operator_bd8_resident_sq"), cfg,
-        data)
-    e1 = rel_l2(np.asarray(step2(aux, data)),
-                np.asarray(ref_step((), data)))
-    assert e1 < 1e-13, e1
-    for n in (1, 3, 11):
-        q = data.qtens
-        for _ in range(n):
-            q = ref_step((), dataclasses.replace(data, qtens=q))
-        assert rel_l2(np.asarray(loop(data, n)), np.asarray(q)) < 1e-13, n
+        get("biharmonic_dss", "fused_operator"), cfg, data)
+    one = np.asarray(step2(aux, data))
+    assert rel_l2(one, np.asarray(ref_step((), data))) < 1e-13
+    np.testing.assert_array_equal(np.asarray(loop(data, 1)), one)
 
 
-def test_resident_pick_k_is_scale_aware():
-    """_pick_k's cost model must agree with the round-4 measurements at
-    both operating points: the production ring (eg=675) takes the deep
-    k=16 chain (measured 485 vs 574 µs/step), while the shipped eg=2
-    ring — where the k=16 window is three rings wide — stays at k=8
-    (measured 10.6 vs 13.4 µs/step after the regression this test
-    pins)."""
-    from cdk_tpu.kernels.biharmonic.pallas_dss_resident import (
-        KMAX,
-        _pick_k,
-    )
-
-    if KMAX < 16:  # probe env override active; the model has one choice
-        pytest.skip("CDK_DSS_KMAX < 16")
-    # production geometry: eg=675 groups of gn=128, ncol 768 — the model
-    # must take the DEEP chain (the round-5 KMAX=32 default: measured
-    # 394.4 vs 403.9 at k=16 vs 405.8 at k=64, one window)
-    assert _pick_k(675, 128, 768, 8, 4, True) == KMAX
-    # shipped geometry: eg=2, ncol 2880 -> 2944 padded — deep windows
-    # are several rings wide there; the model must stay at k=8
-    assert _pick_k(2, 128, 2944, 8, 4, True) == 8
-    assert _pick_k(2, 128, 2944, 8, 4, False) == 8
-
-
-def test_dss_resident_loop_carries_padded_no_per_call_pad():
-    """Round-5 pad-hoist guard: the chain loop's scan body must contain
-    NO pad primitive outside the Pallas kernel — carrying the unpadded
-    layout made every chain call re-pad + slice the whole field
-    (~55 us/step at production; round5-summary §3 revision).  Checks the
-    scanned jaxpr structurally so the tax cannot silently return."""
+@pytest.mark.parametrize("ndev", [1, 4])
+def test_dss_dist_overlap_loop_matches_serial_loop(ndev):
+    """A multi-step loop over the overlapped dist step == the same loop
+    over the serialized step, bitwise: both assemble the identical DSS
+    window — only when the halo columns arrive differs."""
     import functools
 
     import jax
 
-    from cdk_tpu.core.registry import _materialize, get
-
-    cfg = with_overrides(BiharmonicConfig(), nelemd=16, nlev=4, qsize=2,
-                         dtype="float32")  # ncol=8 -> lane-pad to 128
-    data = problem.init_data(cfg)
-    _, _, vloop = _materialize(
-        get("biharmonic_dss", "fused_operator_bd8_resident_sq_x3"), cfg,
-        data)
-    jx = jax.make_jaxpr(functools.partial(vloop, n=32))(data)
-
-    def scan_bodies(jaxpr, out):
-        for eqn in jaxpr.eqns:
-            if eqn.primitive.name == "scan":
-                out.append(eqn.params["jaxpr"].jaxpr)
-            for k, v in eqn.params.items():
-                if hasattr(v, "jaxpr") and k != "jaxpr":
-                    scan_bodies(v.jaxpr, out)
-                elif k == "jaxpr" and eqn.primitive.name != "scan":
-                    scan_bodies(v.jaxpr if hasattr(v, "jaxpr") else v,
-                                out)
-        return out
-
-    bodies = scan_bodies(jx.jaxpr, [])
-    assert bodies, "chain loop no longer scans — update this guard"
-    for body in bodies:
-        pads = [e for e in body.eqns
-                if e.primitive.name == "pad"
-                and any(v.aval.size >= cfg.nelemd * cfg.npts * cfg.ncol
-                        for v in e.outvars)]
-        assert not pads, (
-            "whole-field pad inside the scanned chain body — the "
-            f"round-5 pad-hoist regressed: {pads}")
-
-
-@pytest.mark.parametrize("ndev", [1, 4])
-def test_dss_dist_kstep_split_matches_padded_window(ndev):
-    """The split-operand kstep loop (round 5) == the padded-window A/B
-    form bitwise: both assemble the identical (B+2hg)-group window for
-    the shared resident kernel — only where the halo bytes come from
-    differs (tiny strip arrays vs a whole-field concat + pad)."""
     cfg = with_overrides(BiharmonicConfig(), nelemd=32, nlev=4, qsize=2,
                          dtype="float32")
     data = problem.init_data(cfg)
     m = meshmod.make_mesh(ndev)
-    si, loop_s, gather = dist_bi.make_dist_loop_dss_kstep(cfg, m, kstep=8)
-    _, loop_p, _ = dist_bi.make_dist_loop_dss_kstep(cfg, m, kstep=8,
-                                                    split=False)
+    si, step_s, gather = dist_bi.make_dist_step_dss(cfg, m)
+    _, step_o, _ = dist_bi.make_dist_step_dss(cfg, m, overlap=True)
     q, aux = si(data)
-    np.testing.assert_array_equal(gather(loop_s(q, aux, 16)),
-                                  gather(loop_p(q, aux, 16)))
+
+    @functools.partial(jax.jit, static_argnums=(0,))
+    def run(step, q):
+        return jax.lax.fori_loop(0, 4, lambda i, x: step(x, aux), q)
+
+    np.testing.assert_array_equal(gather(run(step_s, q)),
+                                  gather(run(step_o, q)))

@@ -6,11 +6,11 @@ single-device reference."""
 import numpy as np
 import pytest
 
-from cdk_tpu.core.config import BiharmonicConfig, with_overrides
-from cdk_tpu.core.norms import rel_l2
-from cdk_tpu.dist import biharmonic as dist_bi
-from cdk_tpu.dist import mesh as meshmod
-from cdk_tpu.kernels.biharmonic import dss2d, problem
+from cdk.core.config import BiharmonicConfig, with_overrides
+from cdk.core.norms import rel_l2
+from cdk.dist import biharmonic as dist_bi
+from cdk.dist import mesh as meshmod
+from cdk.kernels.biharmonic import dss2d, problem
 
 CFG = BiharmonicConfig()  # nelemd=16 -> 4x4 torus
 
@@ -105,7 +105,7 @@ def test_dss2d_interior_is_mass_projection():
 def test_dss2d_lane_matches_full_field():
     """The lane-layout assembly (optimized variants' form) computes the
     identical bits through the layout transforms."""
-    from cdk_tpu.kernels.biharmonic.problem import (
+    from cdk.kernels.biharmonic.problem import (
         from_lane_layout,
         to_lane_layout,
     )
@@ -133,7 +133,7 @@ def test_dss2d_reduces_to_ring_when_ex_is_1():
     on interior i rows."""
     import jax.numpy as jnp
 
-    from cdk_tpu.kernels.biharmonic import dss
+    from cdk.kernels.biharmonic import dss
 
     rng = np.random.default_rng(3)
     e, n = 6, 4
@@ -150,34 +150,32 @@ def test_dss2d_reduces_to_ring_when_ex_is_1():
                                rtol=1e-14)
 
 
-@pytest.mark.parametrize("exy,g", [((4, 4), 4), ((3, 8), 4), ((2, 6), 3)])
-def test_dss2d_grouped_matches_lane(exy, g):
-    """The grouped-layout torus assembly (bd8 loop's zero-relayout form)
-    computes bitwise the same assembly as dss2d_lane."""
+@pytest.mark.parametrize("exy", [(4, 4), (3, 8), (2, 6)])
+def test_dss2d_lane_matches_torus_on_shapes(exy):
+    """The lane-layout torus assembly (the fused forms' carry layout)
+    equals dss_torus on the (e, ..., i, j) layout across torus shapes."""
     import jax.numpy as jnp
 
     ex, ey = exy
     e, npg, ncol = ex * ey, 4, 10
     npts = npg * npg
     rng = np.random.default_rng(11)
-    s_lane = jnp.asarray(rng.standard_normal((e, npts, ncol)),
-                         dtype=jnp.float32)
-    w = jnp.asarray(rng.uniform(0.5, 2.0, (ex * ey, npg, npg)),
-                    dtype=jnp.float32)
-    ref = dss2d.dss2d_lane(s_lane, w.reshape(e, npts, 1), ex, ey, npg)
-    w6 = w.reshape(ex, ey // g, g, npg, npg)[..., None]
-    out = dss2d.dss2d_grouped(
-        s_lane.reshape(e // g, g * npts, ncol), w6, g, npg, ex, ey
-    ).reshape(e, npts, ncol)
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(out))
+    s4 = rng.standard_normal((e, ncol, npg, npg))
+    w = rng.uniform(0.5, 2.0, (e, npg, npg))
+    ref = dss2d.dss_torus(jnp.asarray(s4), jnp.asarray(w)[:, None], ex, ey)
+    s_lane = jnp.asarray(s4.reshape(e, ncol, npts).transpose(0, 2, 1))
+    out = dss2d.dss2d_lane(s_lane, jnp.asarray(w).reshape(e, npts, 1),
+                           ex, ey, npg)
+    out4 = np.asarray(out).transpose(0, 2, 1).reshape(e, ncol, npg, npg)
+    np.testing.assert_allclose(out4, np.asarray(ref), rtol=1e-15, atol=0)
 
 
 def test_dss2d_loops_match_chained_steps():
-    from cdk_tpu.core.registry import _materialize, get
+    from cdk.core.registry import _materialize, get
 
     cfg = with_overrides(CFG, nelemd=8, nlev=4, qsize=2)
     data = problem.init_data(cfg)
-    for name in ("fused_operator", "fused_operator_bd8"):
+    for name in ("fused_operator", "fused_operator_tf32"):
         step2, aux, loop = _materialize(
             get("biharmonic_dss2d", name), cfg, data)
         assert loop is not None
@@ -189,142 +187,66 @@ def test_dss2d_loops_match_chained_steps():
         assert rel_l2(np.asarray(loop(data, 3)), np.asarray(q)) < 1e-6, name
 
 
-@pytest.mark.parametrize("nelemd", [12, 16])  # (4,3) g=3 and (4,4) g=4
-def test_dss2d_resident_chain_matches_chained_reference(nelemd):
-    """The VMEM-resident torus-DSS chain (k in-kernel steps over element-
-    ROW windows; j assembly window-local, i halos amortized) == chained
-    reference steps at f64.  n=5 exercises the scan(k)+remainder path."""
-    import dataclasses
-
-    from cdk_tpu.core.registry import _materialize, get
-
-    cfg = with_overrides(CFG, nelemd=nelemd, nlev=4, qsize=2,
-                         dtype="float64")
-    data = problem.init_data(cfg)
-    ref_step, _, _ = _materialize(
-        get("biharmonic_dss2d", "reference_jnp"), cfg, data)
-    step2, aux, loop = _materialize(
-        get("biharmonic_dss2d", "fused_operator_bd8_resident"), cfg, data)
-    e1 = rel_l2(np.asarray(step2(aux, data)),
-                np.asarray(ref_step((), data)))
-    assert e1 < 1e-13, e1
-    for n in (3, 5):
-        q = data.qtens
-        for _ in range(n):
-            q = ref_step((), dataclasses.replace(data, qtens=q))
-        assert rel_l2(np.asarray(loop(data, n)), np.asarray(q)) < 1e-13, n
-
-
 @pytest.mark.parametrize("nelemd", [12, 16, 160])
-def test_dss2d_rowchain_matches_chained_reference(nelemd):
-    """The t-carry rowchain (bridge-in → (n-1) fused t-steps →
-    bridge-out; 1-row windows) == chained reference steps at f64.  n=2
-    exercises one fused t-step, n=5 the scan path.  nelemd=160 (16x10
-    torus) runs the spatially-BLOCKED step (bi=8 < ex=16: two grid cells,
-    so the halo rows cross block boundaries AND wrap); 12/16 run bi=ex
-    single-cell wrap."""
+def test_dss2d_fused_loop_matches_chained_reference(nelemd):
+    """The fused-operator loop (the production champion's timed path) ==
+    chained reference steps at f64 on (4,3), (4,4) and (16,10) tori."""
     import dataclasses
 
-    from cdk_tpu.core.registry import _materialize, get
+    from cdk.core.registry import _materialize, get
 
     cfg = with_overrides(CFG, nelemd=nelemd, nlev=4, qsize=2,
                          dtype="float64")
-    data = problem.init_data(cfg)
-    ref_step, _, _ = _materialize(
-        get("biharmonic_dss2d", "reference_jnp"), cfg, data)
-    step2, aux, loop = _materialize(
-        get("biharmonic_dss2d", "fused_operator_rowchain"), cfg, data)
-    e1 = rel_l2(np.asarray(step2(aux, data)),
-                np.asarray(ref_step((), data)))
-    assert e1 < 1e-13, e1
-    # n=2: single t-step; n=4: one TRIPLE step; n=5: triple + single;
-    # n=6: triple + double; n=7: two triples
-    for n in (2, 4, 5, 6, 7):
-        q = data.qtens
-        for _ in range(n):
-            q = ref_step((), dataclasses.replace(data, qtens=q))
-        assert rel_l2(np.asarray(loop(data, n)), np.asarray(q)) < 1e-13, n
-
-
-@pytest.mark.parametrize("nelemd", [16, 160])
-def test_dss2d_rowchain_sq_matches_chained_reference(nelemd):
-    """The precomposed-A² rowchain (one apply of the squared operator per
-    t-step instead of two adjacent applies) == chained reference at f64:
-    proves the composition is exact algebra, not an approximation.  n
-    values cover the single/double/triple-step scan paths like the plain
-    rowchain test."""
-    import dataclasses
-
-    from cdk_tpu.core.registry import _materialize, get
-
-    cfg = with_overrides(CFG, nelemd=nelemd, nlev=4, qsize=2,
-                         dtype="float64")
-    data = problem.init_data(cfg)
-    ref_step, _, _ = _materialize(
-        get("biharmonic_dss2d", "reference_jnp"), cfg, data)
-    step2, aux, loop = _materialize(
-        get("biharmonic_dss2d", "fused_operator_rowchain_sq"), cfg, data)
-    e1 = rel_l2(np.asarray(step2(aux, data)),
-                np.asarray(ref_step((), data)))
-    assert e1 < 1e-13, e1
-    for n in (2, 4, 5, 6, 7):
-        q = data.qtens
-        for _ in range(n):
-            q = ref_step((), dataclasses.replace(data, qtens=q))
-        assert rel_l2(np.asarray(loop(data, n)), np.asarray(q)) < 1e-13, n
-
-
-def test_dss2d_rowchain_k4_gating_and_parity():
-    """The temporal k=4 deepening is admitted ONLY for the precomposed
-    bf16x3 form (measured round 4 at production: 925→879 µs/step there,
-    but 1206→1474 REGRESSION for the MXU-heavier 'highest' apply whose
-    halo-level recompute outweighs the DMA saving), and the k=4 blocked
-    kernel itself matches chained f32 reference steps at the bf16x3
-    tolerance."""
-    import dataclasses
-
-    from cdk_tpu.core.registry import _materialize, get
-    from cdk_tpu.kernels.biharmonic import pallas_dss2d_resident as pr
-
-    cfg = with_overrides(CFG, nlev=4, qsize=2, dtype="float32")
-    calls_x3sq, _ = pr._rowchain_calls(cfg, "bf16x3", True,
-                                       precomposed=True)
-    calls_hisq, _ = pr._rowchain_calls(cfg, "highest", True,
-                                       precomposed=True)
-    calls_x3, _ = pr._rowchain_calls(cfg, "bf16x3", True,
-                                     precomposed=False)
-    assert calls_x3sq["kmax"] == 4 and 4 in calls_x3sq["steps_k"]
-    assert calls_hisq["kmax"] == 3 and 4 not in calls_hisq["steps_k"]
-    assert calls_x3["kmax"] == 3 and 4 not in calls_x3["steps_k"]
-
     data = problem.init_data(cfg)
     ref_step, _, _ = _materialize(
         get("biharmonic_dss2d", "reference_jnp"), cfg, data)
     _, _, loop = _materialize(
-        get("biharmonic_dss2d", "fused_operator_rowchain_sq_x3"), cfg,
-        data)
-    n = 5  # nt=4 -> exactly one k=4 blocked call, no remainder
+        get("biharmonic_dss2d", "fused_operator"), cfg, data)
+    n = 5
     q = data.qtens
     for _ in range(n):
         q = ref_step((), dataclasses.replace(data, qtens=q))
-    e = rel_l2(np.asarray(loop(data, n)), np.asarray(q))
-    assert e < 5e-5, e
+    assert rel_l2(np.asarray(loop(data, n)), np.asarray(q)) < 1e-13
+
+
+@pytest.mark.parametrize("nelemd", [16, 160])
+def test_dss2d_f32_steps_within_gates(nelemd):
+    """One f32 step: the exact fused form within the family's 1e-6 gate,
+    the TF32 form within the fast-math tier (1e-2)."""
+    from cdk.core.registry import _materialize, get
+
+    cfg = with_overrides(CFG, nelemd=nelemd, nlev=4, qsize=2,
+                         dtype="float32")
+    data = problem.init_data(cfg)
+    ref = np.asarray(registry_step(cfg, "reference_jnp", data)(data))
+    for name, gate in (("fused_operator", 1e-6),
+                       ("fused_operator_tf32", 1e-2)):
+        step2, aux, _ = _materialize(get("biharmonic_dss2d", name), cfg,
+                                     data)
+        e = rel_l2(np.asarray(step2(aux, data)), ref)
+        assert e < gate, (name, e)
+
+
+def registry_step(cfg, name, data):
+    from cdk.core.registry import get, make_step
+
+    return make_step(get("biharmonic_dss2d", name), cfg, data)
 
 
 def test_dss2d_variants_through_harness():
-    from cdk_tpu.harness import driver
+    from cdk.harness import driver
 
     cfg = with_overrides(CFG, nelemd=4, nlev=4, qsize=2)
     res = driver.run_kernel("biharmonic_dss2d", cfg, iters=2, trials=1,
                             quiet=True)
     names = {r.variant for r in res}
-    assert names >= {"reference_jnp", "fused_operator", "fused_operator_f32"}
+    assert names >= {"reference_jnp", "fused_operator"}
     assert all(r.ok for r in res), [(r.variant, r.metrics) for r in res]
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1), (2, 4), (4, 2)])
 def test_dss2d_decomposed_matches_single(shape):
-    from cdk_tpu.kernels.biharmonic.dss2d import make_reference
+    from cdk.kernels.biharmonic.dss2d import make_reference
 
     data = problem.init_data(CFG)
     ref = np.asarray(make_reference(CFG)(data))
@@ -339,7 +261,7 @@ def test_dss2d_decomposed_matches_single(shape):
 def test_dss2d_dist_loop_matches_chained():
     from dataclasses import replace
 
-    from cdk_tpu.kernels.biharmonic.dss2d import make_reference
+    from cdk.kernels.biharmonic.dss2d import make_reference
 
     data = problem.init_data(CFG)
     ref_step = make_reference(CFG)
@@ -356,116 +278,77 @@ def test_dss2d_dist_loop_matches_chained():
 
 
 @pytest.mark.parametrize("ndev,n", [(2, 1), (2, 5), (2, 7), (4, 4)])
-def test_dss2d_dist_rowchain_matches_chained_reference(ndev, n):
-    """The distributed t-carry rowchain (rows sharded; one t row
-    ppermuted per side per step; fused kernels inside shard_map) ==
-    chained reference at f64."""
-    import dataclasses
-
-    from cdk_tpu.core.registry import _materialize, get
-
-    cfg = with_overrides(CFG, nelemd=32, nlev=4, qsize=2, dtype="float64")
-    data = problem.init_data(cfg)
-    ref_step, _, _ = _materialize(
-        get("biharmonic_dss2d", "reference_jnp"), cfg, data)
-    m = meshmod.make_mesh(ndev)
-    shard_inputs, loop, gather = dist_bi.make_dist_loop_dss2d_rowchain(
-        cfg, m)
-    q2, aux = shard_inputs(data)
-    q = data.qtens
-    for _ in range(n):
-        q = ref_step((), dataclasses.replace(data, qtens=q))
-    assert rel_l2(gather(loop(q2, aux, n)), np.asarray(q)) < 1e-13
+def test_dss2d_dist_row_mesh_matches_chained_reference(ndev, n):
+    """The dist torus-DSS loop with the element grid's columns split over
+    a (1, ndev) mesh == chained reference at f64."""
+    dist_loop_vs_reference((1, ndev), n)
 
 
 @pytest.mark.parametrize(
-    "ndev,kstep,n",
-    [(2, 2, 5), (2, 4, 5), (4, 2, 9),
-     # (n-1) % kstep != 0: the remainder chain (k < kstep) slices the
-     # kstep-extended operator windows at an offset — regression cases
-     # for the misaligned-slice bug the first cut shipped
-     (2, 4, 4), (2, 2, 4), (2, 4, 2)],
+    "shape,n",
+    [((2, 2), 5), ((2, 2), 4), ((4, 2), 9), ((2, 4), 4), ((2, 1), 4),
+     ((4, 1), 2)],
 )
-def test_dss2d_dist_rowchain_kstep_matches_chained_reference(ndev, kstep, n):
-    """Communication-avoiding rowchain (kstep t rows exchanged once per
-    kstep sub-steps; shrinking-window local chain) == chained reference
-    at f64, including the (n-1) % kstep remainder path."""
+def test_dss2d_dist_2d_mesh_matches_chained_reference(shape, n):
+    """The dist torus-DSS loop on 2-D meshes (both edge passes exchanged
+    between devices, corners through the two-pass sum) == chained
+    reference at f64."""
+    dist_loop_vs_reference(shape, n)
+
+
+def dist_loop_vs_reference(shape, n):
     import dataclasses
 
-    from cdk_tpu.core.registry import _materialize, get
+    from cdk.core.registry import _materialize, get
 
     cfg = with_overrides(CFG, nelemd=32, nlev=4, qsize=2, dtype="float64")
     data = problem.init_data(cfg)
     ref_step, _, _ = _materialize(
         get("biharmonic_dss2d", "reference_jnp"), cfg, data)
-    m = meshmod.make_mesh(ndev)
-    si, loop, gather = dist_bi.make_dist_loop_dss2d_rowchain_kstep(
-        cfg, m, kstep=kstep)
-    q2, aux = si(data)
+    m = meshmod.make_mesh2d(shape=shape)
+    shard_inputs, _, gather = dist_bi.make_dist_step_dss2d(cfg, m)
+    loop = dist_bi.make_dist_loop_dss2d(cfg, m)
+    q5, aux = shard_inputs(data)
     q = data.qtens
     for _ in range(n):
         q = ref_step((), dataclasses.replace(data, qtens=q))
-    assert rel_l2(gather(loop(q2, aux, n)), np.asarray(q)) < 1e-13
+    assert rel_l2(gather(loop(q5, aux, n)), np.asarray(q)) < 1e-12
 
 
-def test_dss2d_dist_rowchain_kk4_f32_matches_reference():
-    """The generic dist k-step path at kk=4 (stepk_padded_factory(4, bi_d),
-    reachable only by the bf16x3-precomposed f32 form — the f64 depth cap
-    is 3) == chained reference at the 5e-5 bf16x3 gate.  Guards the branch
-    that replaced the hand-written k=2/3 kernels and is otherwise
-    exercised only on the real TPU (ADVICE r4)."""
-    import dataclasses
-
-    from cdk_tpu.core.registry import _materialize, get
-    from cdk_tpu.kernels.biharmonic import pallas_dss2d_resident as pr
-
-    ndev, n = 2, 6  # nt = n-1 = 5 -> one kk=4 blocked call + 1 remainder
+def test_dss2d_dist_f32_step_matches_reference():
+    """One f32 dist step on a 2-device row mesh within the family's 1e-6
+    gate (multi-step f32 chains underflow to zero and compare nothing)."""
     cfg = with_overrides(CFG, nelemd=32, nlev=4, qsize=2, dtype="float32")
-    # pin the preconditions that make the loop build AND use the kk=4
-    # padded call — if the geometry or gates drift, fail loudly instead
-    # of silently passing through shallower depths
-    calls, geom = pr._rowchain_calls(cfg, "bf16x3", True, precomposed=True)
-    ex, _, _, _, _, L, ncol, _ = geom
-    exl_rows = ex // ndev
-    assert calls["kmax"] >= 4 and exl_rows >= 4
-    row_b = L * calls["ncol_blk"] * cfg.np_dtype(0).itemsize
-    assert pr.step_budget_ok(4, 4, row_b)
-
     data = problem.init_data(cfg)
-    ref_step, _, _ = _materialize(
-        get("biharmonic_dss2d", "reference_jnp"), cfg, data)
-    m = meshmod.make_mesh(ndev)
-    shard_inputs, loop, gather = dist_bi.make_dist_loop_dss2d_rowchain(
-        cfg, m)
-    q2, aux = shard_inputs(data)
-    q = data.qtens
-    for _ in range(n):
-        q = ref_step((), dataclasses.replace(data, qtens=q))
-    assert rel_l2(gather(loop(q2, aux, n)), np.asarray(q)) < 5e-5
+    ref = np.asarray(registry_step(cfg, "reference_jnp", data)(data))
+    m = meshmod.make_mesh2d(shape=(1, 2))
+    shard_inputs, step, gather = dist_bi.make_dist_step_dss2d(cfg, m)
+    q5, aux = shard_inputs(data)
+    assert rel_l2(gather(step(q5, aux)), ref) < 1e-6
 
 
-def test_dss2d_dist_rowchain_overlap_matches_serial_exactly():
-    """Overlapped (full-batch-with-edge-patch) and serialized rowchain
-    loops are the same arithmetic — bitwise-identical outputs."""
+def test_dss2d_dist_loop_equals_chained_steps_exactly():
+    """The scanned dist loop and chained dist steps are the same
+    arithmetic — bitwise-identical outputs."""
     cfg = with_overrides(CFG, nelemd=32, nlev=4, qsize=2, dtype="float64")
     data = problem.init_data(cfg)
-    m = meshmod.make_mesh(4)
-    si, loop_s, gather = dist_bi.make_dist_loop_dss2d_rowchain(cfg, m)
-    _, loop_o, _ = dist_bi.make_dist_loop_dss2d_rowchain(cfg, m,
-                                                         overlap=True)
-    q2, aux = si(data)
-    np.testing.assert_array_equal(gather(loop_s(q2, aux, 4)),
-                                  gather(loop_o(q2, aux, 4)))
+    m = meshmod.make_mesh2d(shape=(2, 2))
+    si, step, gather = dist_bi.make_dist_step_dss2d(cfg, m)
+    loop = dist_bi.make_dist_loop_dss2d(cfg, m)
+    q5, aux = si(data)
+    q = q5
+    for _ in range(4):
+        q = step(q, aux)
+    np.testing.assert_array_equal(gather(loop(q5, aux, 4)), gather(q))
 
 
 def test_dss2d_geometry_fuzz():
-    """Resident chain + rowchain vs reference across random torus shapes
-    (odd ey → non-8 group sizes, rectangular grids, prime-ish factors) —
-    the window masks and shift distances must hold at every geometry, not
-    just the shipped/production ones."""
+    """Fused loop vs reference across random torus shapes (odd ey,
+    rectangular grids, prime-ish factors) — the edge-sum shifts must hold
+    at every geometry, not just the shipped/production ones."""
     import dataclasses
 
-    from cdk_tpu.core.registry import _materialize, get
+    from cdk.core.registry import _materialize, get
 
     rng = np.random.default_rng(5)
     shapes = [(2, 3), (5, 4), (3, 6), (7, 2), (4, 10)]
@@ -482,8 +365,7 @@ def test_dss2d_geometry_fuzz():
         q = data.qtens
         for _ in range(2):
             q = ref_step((), dataclasses.replace(data, qtens=q))
-        for name in ("fused_operator_bd8_resident", "fused_operator_rowchain",
-                     "fused_operator_bd8"):
+        for name in ("fused_operator",):
             _, _, loop = _materialize(get("biharmonic_dss2d", name), cfg,
                                       data)
             e = rel_l2(np.asarray(loop(data, 2)), np.asarray(q))

@@ -6,14 +6,14 @@ errTol=1e-10 per-point check (nested.F90:267-287)."""
 import numpy as np
 import pytest
 
-from cdk_tpu.core.config import CkeConfig, with_overrides
-from cdk_tpu.core.norms import pointwise_check
-from cdk_tpu.core import registry as _registry
-from cdk_tpu.kernels.cke import onehot_mxu, problem, reference
+from cdk.core.config import CkeConfig, with_overrides
+from cdk.core.norms import pointwise_check
+from cdk.core import registry as _registry
+from cdk.kernels.cke import problem, reference
 
 
 def _onehot_step(cfg, data):
-    return _registry.make_step(_registry.get("cke", "onehot_mxu"), cfg, data)
+    return _registry.make_step(_registry.get("cke", "onehot_matmul"), cfg, data)
 
 SMALL = with_overrides(CkeConfig(), nedges=40, ncells=12, nvertlevels=7, nadv=4)
 
@@ -109,93 +109,74 @@ def test_shipped_namelist_size():
     assert n_bad == 0, f"max_err={max_err}\n" + "\n".join(lines[:5])
 
 
-def test_pallas_onehot_matches_reference(small_data):
-    from cdk_tpu.kernels.cke import pallas_onehot
-
-    ref = np.asarray(reference.make_reference(SMALL)(small_data))
-    out = np.asarray(pallas_onehot.make_pallas_onehot(SMALL)(small_data))
-    n_bad, max_err, lines = pointwise_check(out, ref, SMALL.errtol)
-    assert n_bad == 0, f"max_err={max_err}"
-
-
-def test_pallas_onehot_midsize_f32():
+def test_onehot_matmul_midsize_f32():
     cfg = with_overrides(
         CkeConfig(), nedges=512, ncells=300, nvertlevels=40, dtype="float32"
     )
-    from cdk_tpu.kernels.cke import pallas_onehot
-
     data = problem.init_data(cfg)
     ref = np.asarray(reference.make_reference(cfg)(data))
-    out = np.asarray(pallas_onehot.make_pallas_onehot(cfg)(data))
+    out = np.asarray(_onehot_step(cfg, data)(data))
     # f32 variant vs f32 reference: same-dtype parity, looser than errTol
-    from cdk_tpu.core.norms import rel_l1
+    from cdk.core.norms import rel_l1
 
     assert rel_l1(out, ref) < 1e-6
 
 
-def test_pallas_onehot_cell_blocking():
-    """Multiple cell blocks (accumulation path) match the reference."""
-    from cdk_tpu.kernels.cke import pallas_onehot
+@pytest.mark.parametrize("budget,raises", [(1 << 10, True), (1 << 30, False)])
+def test_onehot_matmul_respects_dense_budget(monkeypatch, small_data,
+                                            budget, raises):
+    """The dense recast is a typed skip once its connectivity matrices
+    outgrow the device's dense-operand budget."""
+    from cdk.core import platform
 
-    cfg = with_overrides(
-        CkeConfig(), nedges=128, ncells=700, nvertlevels=12, dtype="float64"
-    )
-    data = problem.init_data(cfg)
-    ref = np.asarray(reference.make_reference(cfg)(data))
+    monkeypatch.setattr(platform, "dense_operand_budget", lambda: budget)
+    if raises:
+        with pytest.raises(_registry.UnsupportedConfigError):
+            _onehot_step(SMALL, small_data)
+        return
+    ref = np.asarray(reference.make_reference(SMALL)(small_data))
+    out = np.asarray(_onehot_step(SMALL, small_data)(small_data))
+    assert pointwise_check(out, ref, SMALL.errtol)[0] == 0
+
+
+def test_reference_contractions_pin_highest_precision(small_data):
+    """The reference's contractions ask for precision='highest', so a
+    backend's reduced-precision default (TF32 on the GPU) never applies."""
     import jax
 
-    out = np.asarray(
-        pallas_onehot._run(
-            data.adv_cells, data.adv_coefs, data.adv_coefs3, data.tracer,
-            data.cell_mask, data.ntf, data.adv_mask, cfg.coef3rdorder,
-            64, True, "highest", 256,
-        )
-    )
-    n_bad, max_err, _ = pointwise_check(out, ref, cfg.errtol)
-    assert n_bad == 0, f"max_err={max_err}"
+    jaxpr = jax.make_jaxpr(reference.make_reference(SMALL))(small_data)
+    dots = [e for e in jaxpr.eqns[0].params["jaxpr"].eqns
+            if e.primitive.name == "dot_general"]
+    assert len(dots) == 2
+    for e in dots:
+        assert all(p == jax.lax.Precision.HIGHEST
+                   for p in e.params["precision"]), e.params["precision"]
 
 
 def test_gather_peradv_matches_oracle(small_data, small_oracle):
-    from cdk_tpu.kernels.cke import gather_peradv
+    from cdk.kernels.cke import gather_peradv
 
     out = np.asarray(gather_peradv.make_gather_peradv(SMALL)(small_data))
     n_bad, max_err, lines = pointwise_check(out, small_oracle, SMALL.errtol)
     assert n_bad == 0, "\n".join(lines)
 
 
-def test_pallas_rows_and_staged_exact_midsize():
-    """New round-2 exact variants at a mid-size config: f64 pointwise at
-    errTol vs the reference (slot-order accumulation contract)."""
-    import numpy as np
+@pytest.mark.parametrize("geometry", [
+    (512, 96, 30, 7),     # mid-size, odd slot count
+    (300, 400, 21, 6),    # more cells than edges, odd level count
+    (128, 700, 12, 10),   # many cells per edge block
+])
+@pytest.mark.parametrize("name", ["gather_peradv", "onehot_matmul"])
+def test_exact_variants_midsize(geometry, name):
+    """Exact variants at mid-size configs: f64 pointwise at errTol vs the
+    reference (the slot-order accumulation contract, nested.F90:533-552)."""
+    from cdk.core.registry import make_step, get
 
-    from cdk_tpu.core.norms import pointwise_check
-    from cdk_tpu.core.registry import get
-
-    cfg = with_overrides(CkeConfig(), nedges=512, ncells=96, nvertlevels=30,
-                         nadv=7)
+    ne, nc, nv, na = geometry
+    cfg = with_overrides(CkeConfig(), nedges=ne, ncells=nc, nvertlevels=nv,
+                         nadv=na)
     data = problem.init_data(cfg)
     ref = np.asarray(reference.make_reference(cfg)(data))
-    for name in ("pallas_rows", "staged_consume"):
-        out = np.asarray(get("cke", name).fn(cfg)(data))
-        n_bad, max_err, _ = pointwise_check(out, ref, cfg.errtol)
-        assert n_bad == 0, (name, max_err)
-
-
-def test_pallas_lanegather_exact_multigroup():
-    """Lane-axis vectorized gather (transposed table, group select tree)
-    at a config spanning several 128-cell lane groups and non-multiple
-    edge/level counts: f64 pointwise at errTol vs the reference (the
-    slot-order accumulation contract, nested.F90:533-552)."""
-    import numpy as np
-
-    from cdk_tpu.core.norms import pointwise_check
-    from cdk_tpu.core.registry import _materialize, get
-
-    cfg = with_overrides(CkeConfig(), nedges=300, ncells=400,
-                         nvertlevels=21, nadv=6)
-    data = problem.init_data(cfg)
-    ref = np.asarray(reference.make_reference(cfg)(data))
-    step2, aux, _ = _materialize(get("cke", "pallas_lanegather"), cfg, data)
-    out = np.asarray(step2(aux, data))
+    out = np.asarray(make_step(get("cke", name), cfg, data)(data))
     n_bad, max_err, _ = pointwise_check(out, ref, cfg.errtol)
-    assert n_bad == 0, max_err
+    assert n_bad == 0, (name, max_err)

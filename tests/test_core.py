@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cdk_tpu.core import frng, norms
-from cdk_tpu.core.config import (
+from cdk.core import frng, norms
+from cdk.core.config import (
     BiharmonicConfig,
     CkeConfig,
     cke_config_from_namelist,
@@ -121,7 +121,7 @@ def test_device_host_consistency():
     import jax.numpy as jnp
     import numpy as np
 
-    from cdk_tpu.core.norms import device_host_consistency
+    from cdk.core.norms import device_host_consistency
 
     host = {"a": np.arange(12.0).reshape(3, 4), "b": np.ones(5)}
     dev = jax.device_put({"a": jnp.asarray(host["a"]),
@@ -137,12 +137,12 @@ def test_device_init_paths():
     """Device-side init: same shapes/structure as host init, deterministic."""
     import numpy as np
 
-    from cdk_tpu.core.config import (
+    from cdk.core.config import (
         BiharmonicConfig, CkeConfig, MpdataConfig, with_overrides
     )
-    from cdk_tpu.kernels.biharmonic import problem as bp
-    from cdk_tpu.kernels.cke import problem as cp
-    from cdk_tpu.kernels.mpdata import problem as mp
+    from cdk.kernels.biharmonic import problem as bp
+    from cdk.kernels.cke import problem as cp
+    from cdk.kernels.mpdata import problem as mp
 
     b = bp.init_data(with_overrides(
         BiharmonicConfig(), nelemd=2, nlev=3, qsize=2, dtype="float32",

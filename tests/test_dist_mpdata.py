@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from cdk_tpu.core.config import MpdataConfig, with_overrides
-from cdk_tpu.core.norms import rel_l1
-from cdk_tpu.dist import mesh as meshmod
-from cdk_tpu.dist import mpdata as dist_mpdata
-from cdk_tpu.kernels.mpdata import problem, reference
+from cdk.core.config import MpdataConfig, with_overrides
+from cdk.core.norms import rel_l1
+from cdk.dist import mesh as meshmod
+from cdk.dist import mpdata as dist_mpdata
+from cdk.kernels.mpdata import problem, reference
 
 CFG = MpdataConfig()  # nx=32 across 8 devices -> chunk ~5 columns
 
@@ -76,7 +76,7 @@ def test_overlap_step_matches_plain(ndev):
 
 
 def test_weak_scaling_harness_runs():
-    from cdk_tpu.harness import scaling
+    from cdk.harness import scaling
 
     pts = scaling.weak_scaling_mpdata(
         device_counts=(1, 2), nx_per_device=32, nslices=4, nz=10,
@@ -122,88 +122,34 @@ def test_dist_loop_scan_matches_chained(overlap):
     assert rel_l1(np.asarray(flux_l), np.asarray(flux_c)) < 1e-15
 
 
-@pytest.mark.parametrize("kernel", ["pallas", "packed", "xmajor"])
+@pytest.mark.parametrize("ndev", [1, 2, 4])
 @pytest.mark.parametrize("overlap", [False, True])
-def test_pallas_dist_kernel_matches_jnp(overlap, kernel):
-    """The Pallas-backed dist steps (VERDICT r1 #1: dist must run the tuned
-    kernel; 'packed' = two-slices-per-register layout, 'xmajor' = x on the
-    free leading axis, 16 slices per vreg tile — the AUTO choice) produce
-    the same values as the jnp masked core on the mesh."""
+def test_dist_step_matches_global_masked_core(overlap, ndev):
+    """The plain and overlapped dist steps produce the values of the
+    single-device masked-global core on the whole grid."""
     data = problem.init_data(CFG)
-    m = meshmod.make_mesh(4)
-    shard_inputs_j, _, gather_j = dist_mpdata.make_dist_step(
-        CFG, m, kernel="jnp")
-    shard_inputs_p, _, gather_p = dist_mpdata.make_dist_step(
-        CFG, m, kernel=kernel)
-    args_j = shard_inputs_j(data)
-    args_p = shard_inputs_p(data)
+    m = meshmod.make_mesh(ndev)
+    shard_inputs, step, gather_f = dist_mpdata.make_dist_step(CFG, m)
     if overlap:
-        step_j = dist_mpdata.make_dist_step_overlap(CFG, m, kernel="jnp")
-        step_p = dist_mpdata.make_dist_step_overlap(CFG, m, kernel=kernel)
-    else:
-        _, step_j, _ = dist_mpdata.make_dist_step(CFG, m, kernel="jnp")
-        _, step_p, _ = dist_mpdata.make_dist_step(CFG, m, kernel=kernel)
-    f_j, flux_j = step_j(*args_j)
-    f_p, flux_p = step_p(*args_p)
-    assert rel_l1(gather_p(f_p), gather_j(f_j)) < 1e-14
-    assert rel_l1(np.asarray(flux_p), np.asarray(flux_j)) < 1e-14
+        step = dist_mpdata.make_dist_step_overlap(CFG, m)
+    f_d, flux_d = step(*shard_inputs(data))
+    f_g, flux_g = dist_mpdata.advect_masked_global(data)
+    assert rel_l1(gather_f(f_d), np.asarray(f_g)) < 1e-14
+    assert rel_l1(np.asarray(flux_d), np.asarray(flux_g)) < 1e-14
 
 
-def test_split_halo_kernel_matches_concat_window():
-    """masked_step_xmajor_split (in-kernel f-halo assembly, owned-only
-    writeback) == masked_step_xmajor on the pre-concatenated window."""
-    from cdk_tpu.core.platform import pallas_interpret
-    from cdk_tpu.kernels.mpdata import pallas_xmajor as px
-    from cdk_tpu.kernels.mpdata.pallas_masked import (
-        masked_step_xmajor,
-        masked_step_xmajor_split,
-    )
-
-    cfg = with_overrides(MpdataConfig(), nslices=16, nz=12)
-    data = problem.init_data(cfg)
-    f, u_g, w_g = dist_mpdata.to_collocated(data)
-    h = dist_mpdata.HALO
-    fx = px.pack3x(f)
-    ux = px.pack3x(u_g)
-    wx = px.pack3x(w_g)
-    rho = px.pack2x(data.rho, pad=1.0)
-    rhow = px.pack2x(data.rhow, pad=1.0)
-    adz = px.pack2x(data.adz, pad=1.0)
-    # extended window: zeros for the (global-edge) halo strips, gi0 shifts
-    pad = jax.numpy.zeros_like(fx[:, :h])
-    f_ext = jax.numpy.concatenate([pad, fx, pad], axis=1)
-    u_ext = jax.numpy.concatenate([pad, ux, pad], axis=1)
-    w_ext = jax.numpy.concatenate([pad, wx, pad], axis=1)
-    interp = pallas_interpret()
-    X = fx.shape[1]
-    f_a, flux_a = masked_step_xmajor(
-        f_ext, u_ext, w_ext, rho, rhow, adz, -2 - h,
-        nx=cfg.nx, nzm=cfg.nzm, owned_lo=h, owned_hi=h + X,
-        interpret=interp,
-    )
-    f_b, flux_b = masked_step_xmajor_split(
-        fx, pad, pad, u_ext, w_ext, rho, rhow, adz, -2 - h,
-        nx=cfg.nx, nzm=cfg.nzm, halo=h, interpret=interp,
-    )
-    np.testing.assert_array_equal(np.asarray(f_a[:, h:h + X]),
-                                  np.asarray(f_b))
-    np.testing.assert_array_equal(np.asarray(flux_a), np.asarray(flux_b))
-
-
-@pytest.mark.parametrize("kstep", [2, 4])
-def test_dist_kloop_matches_reference(kstep):
-    """Communication-avoiding loop (deep halo exchanged once per kstep
-    in-kernel masked steps, hoisted invariants) vs chained reference
-    steps.  The hoisting reassociates ~1 ulp/step, hence the 1e-12 gate
-    instead of the bit-exact one."""
+@pytest.mark.parametrize("ndev", [2, 4])
+def test_dist_loop_matches_reference(ndev):
+    """The hoisted dist loop (u/w halos exchanged once per run, f every
+    step) vs chained reference steps.  Masked vs positional forms
+    reassociate ~1 ulp/step, hence the 1e-12 gate instead of bit-exact."""
     import dataclasses
 
     cfg = with_overrides(MpdataConfig(), nx=64, nslices=4, nz=12)
     data = problem.init_data(cfg)
-    m = meshmod.make_mesh(4)
-    shard_inputs, _, gather_f = dist_mpdata.make_dist_step(
-        cfg, m, kernel="xmajor")
-    loop = dist_mpdata.make_dist_loop(cfg, m, kernel="xmajor", kstep=kstep)
+    m = meshmod.make_mesh(ndev)
+    shard_inputs, _, gather_f = dist_mpdata.make_dist_step(cfg, m)
+    loop = dist_mpdata.make_dist_loop(cfg, m)
     f_s, u_s, w_s, aux = shard_inputs(data)
     n = 8
     f_l, flux_l = loop(f_s, u_s, w_s, aux, n)
@@ -229,38 +175,72 @@ def test_dist_step_and_loop_reject_chunk_below_halo():
         dist_mpdata.make_dist_loop(cfg, m)
 
 
-def test_dist_kloop_rejects_bad_geometry():
-    cfg = with_overrides(MpdataConfig(), nx=16, nslices=4, nz=12)
-    m = meshmod.make_mesh(4)  # chunk = ceil(22/4) = 6 < 3*4
+def test_dist_overlap_rejects_narrow_chunk():
+    """The overlap form needs depth+3 local columns beside each halo."""
+    cfg = with_overrides(MpdataConfig(), nx=10, nslices=4, nz=12)
+    m = meshmod.make_mesh(4)  # chunk = ceil(16/4) = 4 < 6
     with pytest.raises(ValueError):
-        dist_mpdata.make_dist_loop(cfg, m, kernel="xmajor", kstep=4)
+        dist_mpdata.make_dist_step_overlap(cfg, m)
+    with pytest.raises(ValueError):
+        dist_mpdata.make_dist_loop(cfg, m, overlap=True)
 
 
 @pytest.mark.parametrize("ndev", [2, 8])
 def test_dist_slices_matches_single_chip_bitwise(ndev):
-    """Slice-batch (data-parallel) dist loop == the single-chip champion
-    loop: sharding the packed group axis only splits the Pallas grid —
-    every shard runs the identical kernel on identical slice data, with
-    no exchange and no collective (the reference's own scaling axis,
-    mmf-mpdata README per-node slice batch).  Tolerance, not bitwise:
-    the per-shard block shape differs from the single-chip one and the
-    CPU interpret path contracts FMAs shape-dependently (measured ~2e-6
-    max abs at ndev=8)."""
-    from cdk_tpu.core.registry import _materialize, get
+    """Slice-batch (data-parallel) dist loop == the single-device loop:
+    every shard runs the same loop on its own slices, with no exchange
+    and no collective (the reference's own scaling axis, mmf-mpdata
+    README per-node slice batch).  Tolerance, not bitwise: the per-shard
+    batch shape differs and the CPU backend contracts FMAs
+    shape-dependently."""
+    _slices_vs_single_device(ndev, 48)
 
-    cfg = with_overrides(MpdataConfig(), nslices=48, nx=16, nz=12,
+
+def test_dist_slices_pads_uneven_slice_count():
+    """45 slices on 8 devices: the slice axis is padded to 48 with a
+    benign state that the gathers drop."""
+    _slices_vs_single_device(8, 45)
+
+
+def _slices_vs_single_device(ndev, nslices):
+    from cdk.core.registry import _materialize, get
+    from cdk.harness.specs import get_spec
+
+    cfg = with_overrides(MpdataConfig(), nslices=nslices, nx=16, nz=12,
                          dtype="float32")
     data = problem.init_data(cfg)
     m = meshmod.make_mesh(ndev)
     si, loop, (gather_f, gather_flux) = dist_mpdata.make_dist_loop_slices(
         cfg, m)
     f_s, u_s, w_s, aux = si(data)
+    assert f_s.shape[0] == -(-nslices // ndev) * ndev
     f_d, flux_d = loop(f_s, u_s, w_s, aux, 3)
 
-    _, _, vloop = _materialize(get("mpdata", "pallas_xmajor"), cfg, data)
-    f_r, flux_r = vloop(data, 3)
+    step2, aux_r, _ = _materialize(get("mpdata", "reference_jnp"), cfg, data)
+    f_r, flux_r = get_spec("mpdata").scan_runner(step2, aux_r, 3)(data)
+    assert gather_f(f_d).shape == f_r.shape
     assert rel_l1(gather_f(f_d), np.asarray(f_r)) < 1e-5
     assert rel_l1(gather_flux(flux_d), np.asarray(flux_r)) < 1e-5
+
+
+def test_single_device_loop_off_gpu_is_reference_scan():
+    """Off the GPU the slice-batch form runs the XLA reference scan (the
+    CUDA kernel applies only on a GPU), never an interpreted kernel."""
+    from cdk.kernels.mpdata import hopper
+
+    cfg = with_overrides(MpdataConfig(), nslices=2, nx=6, nz=8)
+    loop = dist_mpdata.single_device_loop(cfg)
+    assert loop is not hopper.mpdata_loop
+    data = problem.init_data(cfg)
+    f, flux = loop(data, 2)
+    d = data
+    ref_step = reference.make_reference(cfg)
+    for _ in range(2):
+        f_r, flux_r = ref_step(d)
+        import dataclasses
+
+        d = dataclasses.replace(d, f=f_r, flux=flux_r)
+    assert rel_l1(np.asarray(f), np.asarray(f_r)) < 1e-14
 
 
 def test_dist_loop_unroll_matches_unrolled_1():
@@ -271,11 +251,27 @@ def test_dist_loop_unroll_matches_unrolled_1():
                          dtype="float32")
     data = problem.init_data(cfg)
     m = meshmod.make_mesh(4)
-    si, _, gather_f = dist_mpdata.make_dist_step(cfg, m, kernel="xmajor")
+    si, _, gather_f = dist_mpdata.make_dist_step(cfg, m)
     args = si(data)
-    loop1 = dist_mpdata.make_dist_loop(cfg, m, kernel="xmajor", unroll=1)
-    loop2 = dist_mpdata.make_dist_loop(cfg, m, kernel="xmajor")  # def. 2
+    loop1 = dist_mpdata.make_dist_loop(cfg, m, unroll=1)
+    loop2 = dist_mpdata.make_dist_loop(cfg, m)  # default unroll=2
     f1, fx1 = loop1(*args, 5)   # odd n: exercises the unroll remainder
     f2, fx2 = loop2(*args, 5)
     np.testing.assert_array_equal(gather_f(f1), gather_f(f2))
     np.testing.assert_array_equal(np.asarray(fx1), np.asarray(fx2))
+
+
+def test_single_device_loop_on_gpu_is_the_cuda_kernel(monkeypatch):
+    """On a GPU the slice-batch form runs the CUDA kernel, and a config
+    the kernel cannot run is an error, not a quiet fall back to XLA."""
+    from cdk.core.registry import UnsupportedConfigError
+    from cdk.kernels.mpdata import hopper
+
+    class FakeGpu:
+        platform = "gpu"
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [FakeGpu()])
+    cfg = with_overrides(MpdataConfig(), nslices=2, dtype="float32")
+    assert dist_mpdata.single_device_loop(cfg) is hopper.mpdata_loop
+    with pytest.raises(UnsupportedConfigError):
+        dist_mpdata.single_device_loop(with_overrides(cfg, dtype="bfloat16"))

@@ -1,9 +1,10 @@
-"""The driver contract: entry() compiles single-chip; dryrun_multichip
+"""The driver contract: entry() compiles single-device; dryrun_multichip
 jits the full distributed step over an n-device mesh."""
 
 import sys
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 import pytest

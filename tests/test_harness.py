@@ -4,13 +4,13 @@ the adaptive slope timer end-to-end)."""
 
 import json
 
-from cdk_tpu.core.config import (
+from cdk.core.config import (
     BiharmonicConfig,
     CkeConfig,
     MpdataConfig,
     with_overrides,
 )
-from cdk_tpu.harness import driver
+from cdk.harness import driver
 
 
 def test_run_kernel_biharmonic_small():
@@ -25,9 +25,9 @@ def test_run_kernel_biharmonic_small():
 def test_run_kernel_mpdata_small():
     cfg = with_overrides(MpdataConfig(), nslices=2, nx=6, nz=8)
     res = driver.run_kernel("mpdata", cfg, iters=2, trials=1, quiet=True)
-    assert {r.variant for r in res} >= {"reference_jnp", "pallas_fused"}
-    # experimental variants are excluded from default sweeps
-    assert "pallas_lanes" not in {r.variant for r in res}
+    # off the GPU the CUDA kernel is a typed skip, not a failure and not
+    # an interpreted run
+    assert {r.variant for r in res} == {"reference_jnp"}
     assert all(r.ok for r in res)
 
 
@@ -35,8 +35,8 @@ def test_run_kernel_cke_small_with_prepare():
     cfg = with_overrides(CkeConfig(), nedges=16, ncells=10, nvertlevels=6,
                          nadv=3)
     res = driver.run_kernel("cke", cfg, iters=2, trials=1, quiet=True)
-    assert {r.variant for r in res} >= {"reference_jnp", "onehot_mxu",
-                                       "pallas_onehot"}
+    assert {r.variant for r in res} >= {"reference_jnp", "onehot_matmul",
+                                       "gather_peradv"}
     assert all(r.ok for r in res), [(r.variant, r.metrics) for r in res]
 
 
@@ -51,17 +51,17 @@ def test_json_roundtrip():
 
 
 def test_cli_list(capsys):
-    from cdk_tpu.cli import main
+    from cdk.cli import main
 
     assert main(["list"]) == 0
     out = capsys.readouterr().out
-    assert "biharmonic" in out and "pallas_fused" in out
+    assert "biharmonic" in out and "hopper_fused" in out
 
 
 def test_profile_cost_analysis():
     import jax.numpy as jnp
 
-    from cdk_tpu.harness import profile
+    from cdk.harness import profile
 
     ca = profile.cost_analysis(lambda x: (x @ x).sum(),
                                jnp.ones((64, 64), jnp.float32))
@@ -71,7 +71,7 @@ def test_profile_cost_analysis():
 
 
 def test_cli_run_cke_with_overrides(capsys):
-    from cdk_tpu.cli import main
+    from cdk.cli import main
 
     rc = main([
         "run", "cke", "--set", "nedges=16", "--set", "ncells=10",
@@ -87,13 +87,13 @@ def test_cli_run_cke_with_overrides(capsys):
 def test_bf16_all_kernels_smoke():
     """bfloat16 dtype end-to-end on every kernel (reference vs one variant
     at the bf16 verification tier)."""
-    from cdk_tpu.core.config import with_overrides
+    from cdk.core.config import with_overrides
 
     for kernel, cfg, variants in [
         ("biharmonic",
          with_overrides(BiharmonicConfig(), nelemd=2, nlev=4, qsize=2,
                         dtype="bfloat16"),
-         ["reference_jnp", "fused_operator_bf16"]),
+         ["reference_jnp", "fused_operator_tf32"]),
         ("cke",
          with_overrides(CkeConfig(), nedges=16, ncells=10, nvertlevels=6,
                         nadv=3, dtype="bfloat16"),
@@ -107,9 +107,8 @@ def test_bf16_all_kernels_smoke():
 
 def test_broken_variant_turns_red():
     """A deliberately-broken variant must surface as an explicit FAILED
-    result (and make the CLI exit non-zero) — never a silent skip
-    (VERDICT r1: harness/driver.py exception swallowing)."""
-    from cdk_tpu.core import registry
+    result (and make the CLI exit non-zero) — never a silent skip."""
+    from cdk.core import registry
 
     @registry.register("biharmonic", "_broken_wrong", "test-only")
     def make_broken_wrong(cfg):
@@ -131,7 +130,7 @@ def test_broken_variant_turns_red():
         assert not by_name["_broken_crash"].ok
         assert "deliberate crash" in by_name["_broken_crash"].note
 
-        from cdk_tpu.cli import main
+        from cdk.cli import main
 
         rc = main([
             "run", "biharmonic", "--set", "nelemd=2", "--set", "nlev=4",
@@ -145,7 +144,7 @@ def test_broken_variant_turns_red():
 
 
 def test_cli_integrate(tmp_path, capsys):
-    from cdk_tpu.cli import main
+    from cdk.cli import main
 
     out = tmp_path / "state.npz"
     rc = main([
@@ -162,15 +161,15 @@ def test_cli_integrate(tmp_path, capsys):
 
 def test_dss_precision_gate_per_variant():
     """A deliberate 1e-5 relative drift injected into an exact-f32 DSS
-    variant must turn the driver red: the family default f32 gate is 1e-6
-    (sized to the 'highest'-precision forms' measured ~1.3e-7), while the
-    bf16x3 'high' forms register verify_tol=5e-5 and tolerate it (VERDICT
-    r3 weak #6: one shared 5e-5 gate hid a 100x precision regression)."""
-    import cdk_tpu.kernels  # noqa: F401 — populate the registry
+    variant must turn the driver red: the family f32 gate is 1e-6 (sized
+    to the 'highest'-precision forms' measured ~1.5e-7), while a variant
+    registered as fast-math (the TF32 policy) takes the loose tier and
+    tolerates it."""
+    import cdk.kernels  # noqa: F401 — populate the registry
 
-    from cdk_tpu.core import registry
+    from cdk.core import registry
 
-    base = registry.get("biharmonic_dss2d", "fused_operator_rowchain")
+    base = registry.get("biharmonic_dss2d", "fused_operator")
 
     def make_drifted(cfg, _fn=base.fn):
         made = _fn(cfg)
@@ -183,41 +182,40 @@ def test_dss_precision_gate_per_variant():
     registry._REGISTRY["biharmonic_dss2d"]["_drift_exact"] = (
         registry.Variant("biharmonic_dss2d", "_drift_exact", make_drifted,
                          "test-only", supports_f64=False))
-    registry._REGISTRY["biharmonic_dss2d"]["_drift_x3gate"] = (
-        registry.Variant("biharmonic_dss2d", "_drift_x3gate", make_drifted,
-                         "test-only", supports_f64=False, verify_tol=5e-5))
+    registry._REGISTRY["biharmonic_dss2d"]["_drift_fast"] = (
+        registry.Variant("biharmonic_dss2d", "_drift_fast", make_drifted,
+                         "test-only", supports_f64=False, fast_math=True))
     try:
         cfg = with_overrides(BiharmonicConfig(), nelemd=4, nlev=4, qsize=2,
                              dtype="float32")
         res = driver.run_kernel(
             "biharmonic_dss2d", cfg, iters=2, trials=1, quiet=True,
-            variants=["reference_jnp", "_drift_exact", "_drift_x3gate"])
+            variants=["reference_jnp", "_drift_exact", "_drift_fast"])
         by_name = {r.variant: r for r in res}
         # exact-f32 family gate (1e-6): the 1e-5 drift is a FAILURE
         assert not by_name["_drift_exact"].ok, by_name["_drift_exact"]
-        # registered bf16x3 gate (5e-5): same drift is within policy
-        assert by_name["_drift_x3gate"].ok, by_name["_drift_x3gate"]
+        # fast-math tier (1e-2): same drift is within policy
+        assert by_name["_drift_fast"].ok, by_name["_drift_fast"]
     finally:
         registry._REGISTRY["biharmonic_dss2d"].pop("_drift_exact", None)
-        registry._REGISTRY["biharmonic_dss2d"].pop("_drift_x3gate", None)
+        registry._REGISTRY["biharmonic_dss2d"].pop("_drift_fast", None)
 
 
 def test_dist_bench_legs_run_and_verify():
     """The gated dist bench legs (harness/distbench.py) run + verify at
     reduced shapes on the 1-device CPU mesh: every family produces a
     finite slope and passes its verification gate; a deliberately broken
-    champion mapping turns a leg red (the regression-gate contract —
-    VERDICT r4 #2 'a deliberately broken dist kernel turns the bench
-    red')."""
+    champion mapping turns a leg red (the regression-gate contract: a
+    deliberately broken dist kernel turns the bench red)."""
     import math
 
-    from cdk_tpu.core.config import CkeConfig, MpdataConfig
-    from cdk_tpu.harness.distbench import run_dist_legs
+    from cdk.core.config import CkeConfig, MpdataConfig
+    from cdk.harness.distbench import run_dist_legs
 
     champs = {
-        "mpdata": "pallas_xmajor",
-        "biharmonic_dss": "fused_operator_bd8_resident_sq_x3",
-        "biharmonic_dss2d": "fused_operator_rowchain_sq_x3",
+        "mpdata": "reference_jnp",
+        "biharmonic_dss": "fused_operator",
+        "biharmonic_dss2d": "fused_operator",
         "cke": "gather_peradv",
     }
     configs = {
@@ -241,9 +239,20 @@ def test_dist_bench_legs_run_and_verify():
         assert r.grid_points_per_s > 0
 
     # broken champion -> the leg fails instead of silently passing
-    bad = dict(champs, mpdata="pallas_packed_bf16")
-    res_bad = run_dist_legs(bad, trials=1, quiet=True,
-                            configs={"mpdata": configs["mpdata"]},
-                            )
+    from cdk.core import registry
+
+    @registry.register("mpdata", "_broken", "test-only")
+    def make_broken(cfg):
+        def loop(data, n):
+            return data.f * 2.0, data.flux
+
+        return {"step": lambda data: loop(data, 1), "loop": loop}
+
+    try:
+        bad = dict(champs, mpdata="_broken")
+        res_bad = run_dist_legs(bad, trials=1, quiet=True,
+                                configs={"mpdata": configs["mpdata"]})
+    finally:
+        registry._REGISTRY["mpdata"].pop("_broken", None)
     mp = next(r for r in res_bad if r.family == "mpdata")
     assert not mp.ok

@@ -6,9 +6,9 @@ the reference driver's own protocol (advect_scalar2D…F90:48-67)."""
 import numpy as np
 import pytest
 
-from cdk_tpu.core.config import MpdataConfig, with_overrides
-from cdk_tpu.core.norms import rel_l1
-from cdk_tpu.kernels.mpdata import problem, reference
+from cdk.core.config import MpdataConfig, with_overrides
+from cdk.core.norms import rel_l1
+from cdk.kernels.mpdata import problem, reference
 
 SMALL = with_overrides(MpdataConfig(), nslices=3, nx=6, nz=9)
 
@@ -200,56 +200,6 @@ def test_flux_nz_passthrough(small_data):
     )
 
 
-def test_pallas_fused_matches_reference(small_data):
-    from cdk_tpu.kernels.mpdata import pallas_fused
-
-    f_ref, flux_ref = reference.make_reference(SMALL)(small_data)
-    f_out, flux_out = pallas_fused.make_pallas_fused(SMALL)(small_data)
-    assert rel_l1(np.asarray(f_out), np.asarray(f_ref)) < 1e-14
-    assert rel_l1(np.asarray(flux_out), np.asarray(flux_ref)) < 1e-14
-
-
-def test_pallas_fused_full_size_f32():
-    cfg = MpdataConfig(dtype="float32")
-    data = problem.init_data(cfg)
-    from cdk_tpu.kernels.mpdata import pallas_fused
-
-    f_ref, flux_ref = reference.make_reference(cfg)(data)
-    f_out, flux_out = pallas_fused.make_pallas_fused(cfg)(data)
-    assert rel_l1(np.asarray(f_out), np.asarray(f_ref)) < 1e-5
-    assert rel_l1(np.asarray(flux_out), np.asarray(flux_ref)) < 1e-4
-
-
-def test_pallas_lanes_matches_reference(small_data):
-    from cdk_tpu.core import registry as _registry
-    from cdk_tpu.kernels.mpdata import pallas_lanes  # noqa: F401
-
-    f_ref, flux_ref = reference.make_reference(SMALL)(small_data)
-    step = _registry.make_step(
-        _registry.get("mpdata", "pallas_lanes"), SMALL, small_data
-    )
-    f_out, flux_out = step(small_data)
-    assert rel_l1(np.asarray(f_out), np.asarray(f_ref)) < 1e-14
-    assert rel_l1(np.asarray(flux_out), np.asarray(flux_ref)) < 1e-14
-
-
-def test_pallas_lanes_loop_and_fullsize():
-    from cdk_tpu.core import registry as _registry
-    from cdk_tpu.kernels.mpdata import pallas_lanes
-
-    cfg = MpdataConfig()
-    data = problem.init_data(cfg)
-    f1, flux1 = reference.make_reference(cfg)(data)
-    d2 = problem.MpdataData(f1, data.u, data.w, data.rho, data.rhow,
-                            data.adz, flux1)
-    f2, flux2 = reference.make_reference(cfg)(d2)
-    made = pallas_lanes.make_pallas_lanes(cfg)
-    f_l, flux_l = made["loop"](data, 2)
-    assert rel_l1(np.asarray(f_l), np.asarray(f2)) < 1e-13
-    assert rel_l1(np.asarray(flux_l), np.asarray(flux2)) < 1e-13
-
-
-
 def test_fct_limiter_non_oscillatory():
     """The non-oscillatory limiter's contract (advect…F90:588-628): the
     corrected interior solution stays within the local extrema bounds
@@ -309,227 +259,136 @@ def test_long_integration_stable_uniform_advection():
     assert fa.max() <= m0 + 1e-12
 
 
-def test_pallas_packed_parity_and_loop():
-    """Packed-lanes kernel (two slices per 128-lane register): stage-exact
-    vs the reference at several geometries, incl. the resident-layout
-    multi-step loop path."""
-    from dataclasses import replace
-
-    import numpy as np
-
-    from cdk_tpu.core.registry import _materialize, get
-
-    for kw in [dict(nslices=4, nx=8, nz=12), dict(nslices=2, nx=6, nz=58),
-               dict(nslices=6, nx=5, nz=9)]:
-        cfg = with_overrides(MpdataConfig(), **kw)
-        data = problem.init_data(cfg)
-        ref_step = reference.make_reference(cfg)
-        step2, aux, loop = _materialize(get("mpdata", "pallas_packed"), cfg,
-                                        data)
-        f_r, flux_r = ref_step(data)
-        f_o, flux_o = step2(aux, data)
-        np.testing.assert_allclose(np.asarray(f_o), np.asarray(f_r),
-                                   rtol=0, atol=1e-13)
-        np.testing.assert_allclose(np.asarray(flux_o), np.asarray(flux_r),
-                                   rtol=1e-13)
-        d = data
-        for _ in range(4):
-            f_r, flux_r = ref_step(d)
-            d = replace(d, f=f_r, flux=flux_r)
-        f_l, flux_l = loop(data, 4)
-        np.testing.assert_allclose(np.asarray(f_l), np.asarray(f_r),
-                                   rtol=0, atol=1e-12)
 
 
-def test_pallas_resident_parity_and_inkernel_loop():
-    """VMEM-resident variant (time loop inside the Pallas body): single
-    step and the in-kernel n-step loop must match chained reference steps
-    exactly — the loop placement must not change a single bit of math."""
-    from dataclasses import replace
+# ---- the CUDA kernel (kernels/mpdata/hopper.py) ---------------------------
+# A CUDA kernel has no interpret mode.  Its per-point arithmetic is
+# cuda/mpdata_stages.h; the serial host driver of those same stage
+# functions (native.mpdata_stages_loop) is checked here against chained
+# reference steps, and the kernel itself against the reference on the card
+# (the `gpu` tests).
 
-    import numpy as np
-
-    from cdk_tpu.core.registry import _materialize, get
-
-    for kw in [dict(nslices=4, nx=8, nz=12), dict(nslices=2, nx=6, nz=58)]:
-        cfg = with_overrides(MpdataConfig(), **kw)
-        data = problem.init_data(cfg)
-        ref_step = reference.make_reference(cfg)
-        step2, aux, loop = _materialize(get("mpdata", "pallas_resident"),
-                                        cfg, data)
-        f_r, flux_r = ref_step(data)
-        f_o, flux_o = step2(aux, data)
-        np.testing.assert_allclose(np.asarray(f_o), np.asarray(f_r),
-                                   rtol=0, atol=1e-13)
-        np.testing.assert_allclose(np.asarray(flux_o), np.asarray(flux_r),
-                                   rtol=1e-13)
-        d = data
-        for _ in range(5):
-            f_r, flux_r = ref_step(d)
-            d = replace(d, f=f_r, flux=flux_r)
-        f_l, flux_l = loop(data, 5)
-        np.testing.assert_allclose(np.asarray(f_l), np.asarray(f_r),
-                                   rtol=0, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(flux_l), np.asarray(flux_r),
-                                   rtol=1e-12)
+# (nslices, nx, nz, steps): the production column shape (nz=58, not a
+# power of two), tiny and odd extents, and multi-step runs
+HOPPER_GRID = [
+    (3, 32, 58, 1),
+    (2, 32, 58, 4),
+    (2, 8, 5, 3),
+    (1, 4, 3, 2),
+    (2, 5, 17, 5),
+    (4, 16, 58, 2),
+    (3, 1, 4, 2),
+]
 
 
-def test_pallas_hoisted_parity():
-    """Hoisted-invariant resident kernel vs reference: the coefficient
-    pre-folding reassociates a couple of adds/muls (~1 ulp/step at f64),
-    so the gate is slightly above the bit-exact variants' but still far
-    below any physical tolerance."""
-    from dataclasses import replace
-
-    import numpy as np
-
-    from cdk_tpu.core.registry import _materialize, get
-
-    for kw in [dict(nslices=4, nx=8, nz=12), dict(nslices=2, nx=6, nz=58),
-               dict(nslices=6, nx=5, nz=9)]:
-        cfg = with_overrides(MpdataConfig(), **kw)
-        data = problem.init_data(cfg)
-        ref_step = reference.make_reference(cfg)
-        step2, aux, loop = _materialize(get("mpdata", "pallas_hoisted"),
-                                        cfg, data)
-        f_r, flux_r = ref_step(data)
-        f_o, flux_o = step2(aux, data)
-        np.testing.assert_allclose(np.asarray(f_o), np.asarray(f_r),
-                                   rtol=0, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(flux_o), np.asarray(flux_r),
-                                   rtol=1e-12)
-        d = data
-        for _ in range(5):
-            f_r, flux_r = ref_step(d)
-            d = replace(d, f=f_r, flux=flux_r)
-        f_l, flux_l = loop(data, 5)
-        np.testing.assert_allclose(np.asarray(f_l), np.asarray(f_r),
-                                   rtol=0, atol=1e-11)
-        np.testing.assert_allclose(np.asarray(flux_l), np.asarray(flux_r),
-                                   rtol=1e-11)
-
-
-def test_pallas_xmajor_parity():
-    """x-major layout (x on a free leading axis, 16 slices per vreg
-    tile): single step + in-kernel loop vs chained reference steps,
-    including slice counts that need padding to a multiple of 16."""
-    from dataclasses import replace
-
-    import numpy as np
-
-    from cdk_tpu.core.registry import _materialize, get
-
-    for kw in [dict(nslices=4, nx=8, nz=12),    # padded 4 -> 16
-               dict(nslices=16, nx=6, nz=58),   # exact multiple
-               dict(nslices=6, nx=5, nz=9),     # padded, odd nzm
-               dict(nslices=48, nx=32, nz=58)]: # shipped geometry
-        cfg = with_overrides(MpdataConfig(), **kw)
-        data = problem.init_data(cfg)
-        ref_step = reference.make_reference(cfg)
-        step2, aux, loop = _materialize(get("mpdata", "pallas_xmajor"),
-                                        cfg, data)
-        f_r, flux_r = ref_step(data)
-        f_o, flux_o = step2(aux, data)
-        np.testing.assert_allclose(np.asarray(f_o), np.asarray(f_r),
-                                   rtol=0, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(flux_o), np.asarray(flux_r),
-                                   rtol=1e-12)
-        d = data
-        for _ in range(4):
-            f_r, flux_r = ref_step(d)
-            d = replace(d, f=f_r, flux=flux_r)
-        f_l, flux_l = loop(data, 4)
-        np.testing.assert_allclose(np.asarray(f_l), np.asarray(f_r),
-                                   rtol=0, atol=1e-11)
-        np.testing.assert_allclose(np.asarray(flux_l), np.asarray(flux_r),
-                                   rtol=1e-11)
-
-
-def test_pallas_packed_rejects_bad_geometry():
-    import pytest as _pytest
-
-    for kw in [dict(nslices=3), dict(nz=100)]:
-        cfg = with_overrides(MpdataConfig(), **kw)
-        from cdk_tpu.core.registry import get
-
-        from cdk_tpu.core.registry import UnsupportedConfigError
-
-        with _pytest.raises(UnsupportedConfigError):
-            get("mpdata", "pallas_packed").fn(cfg)
-
-
-def test_packed_z_helpers_match_plain():
-    """kbp/kcp/pack round-trip: packed lane ops reproduce the plain
-    clamped z-shifts segment-by-segment on random data."""
-    import numpy as np
-
-    import jax.numpy as jnp
-
-    from cdk_tpu.kernels.mpdata import pallas_packed as pk
-    from cdk_tpu.kernels.mpdata.reference import _kb, _kc
-
-    rng = np.random.default_rng(0)
-    a = rng.standard_normal((4, 5, 30))
-    ap = pk.pack3(jnp.asarray(a))
-    assert np.array_equal(pk.unpack3(ap, 30), a)
-
+def _chained_reference(data, n):
     import jax
 
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, 1, 2 * pk.SEG), 2)
-    zk = lane % pk.SEG
-    kbp = pk._kbp(ap, zk == 0)
-    kcp = pk._kcp(ap, zk == 29)
-    np.testing.assert_array_equal(pk.unpack3(kbp, 30), _kb(jnp.asarray(a)))
-    np.testing.assert_array_equal(pk.unpack3(kcp, 30), _kc(jnp.asarray(a)))
+    step = jax.jit(reference.advect_scalar2d)
+    f, flux = data.f, data.flux
+    for _ in range(n):
+        f, flux = step(f, data.u, data.w, data.rho, data.rhow, data.adz,
+                       flux)
+    return np.asarray(f), np.asarray(flux)
 
 
-def test_pallas_packed_geometry_fuzz():
-    """Packed kernel vs reference across random small geometries (odd
-    nzm, tiny nx, varying slices) — the segment-boundary fixups must hold
-    everywhere, not just at the shipped shape."""
-    import numpy as np
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("geometry", HOPPER_GRID)
+def test_hopper_stages_match_reference(geometry, dtype):
+    from cdk.core import native
 
-    from cdk_tpu.core.registry import _materialize, get
-
-    rng = np.random.default_rng(7)
-    for _ in range(6):
-        ns = int(rng.choice([2, 4, 6, 8]))
-        nx = int(rng.integers(4, 12))
-        nzm = int(rng.integers(3, 63))
-        cfg = with_overrides(MpdataConfig(), nslices=ns, nx=nx, nz=nzm + 1)
-        data = problem.init_data(cfg)
-        f_r, flux_r = reference.make_reference(cfg)(data)
-        step2, aux, _ = _materialize(get("mpdata", "pallas_packed"), cfg,
-                                     data)
-        f_o, flux_o = step2(aux, data)
-        np.testing.assert_allclose(np.asarray(f_o), np.asarray(f_r),
-                                   rtol=0, atol=1e-12,
-                                   err_msg=f"ns={ns} nx={nx} nzm={nzm}")
-        np.testing.assert_allclose(np.asarray(flux_o), np.asarray(flux_r),
-                                   rtol=1e-12,
-                                   err_msg=f"ns={ns} nx={nx} nzm={nzm}")
+    if not native.available():
+        pytest.skip("native host library unavailable")
+    ns, nx, nz, n = geometry
+    cfg = with_overrides(MpdataConfig(), nslices=ns, nx=nx, nz=nz,
+                         dtype=dtype)
+    data = problem.init_data(cfg)
+    f_r, flux_r = _chained_reference(data, n)
+    f_k, flux_k = native.mpdata_stages_loop(data, n)
+    assert f_k.dtype == np.dtype(dtype)
+    tol = 1e-13 if dtype == "float64" else 1e-6
+    assert rel_l1(f_k, f_r) < tol
+    assert rel_l1(flux_k, flux_r) < 10 * tol
 
 
-def test_dist_packed_geometry_fuzz():
-    """Packed masked dist step vs reference across random geometries and
-    device counts (global-index masks + segment fixups together)."""
-    import numpy as np
+def test_hopper_stages_zero_steps_is_identity():
+    from cdk.core import native
 
-    from cdk_tpu.dist import mesh as meshmod
-    from cdk_tpu.dist import mpdata as dist_mpdata
+    if not native.available():
+        pytest.skip("native host library unavailable")
+    data = problem.init_data(SMALL)
+    f_k, flux_k = native.mpdata_stages_loop(data, 0)
+    np.testing.assert_array_equal(f_k, np.asarray(data.f))
+    np.testing.assert_array_equal(flux_k, np.asarray(data.flux))
 
-    rng = np.random.default_rng(11)
-    for _ in range(4):
-        ns = int(rng.choice([2, 4]))
-        nx = int(rng.integers(8, 40))
-        nzm = int(rng.integers(5, 60))
-        ndev = int(rng.choice([2, 4]))
-        cfg = with_overrides(MpdataConfig(), nslices=ns, nx=nx, nz=nzm + 1)
-        data = problem.init_data(cfg)
-        f_r, _ = reference.make_reference(cfg)(data)
-        m = meshmod.make_mesh(ndev)
-        si, step, gf = dist_mpdata.make_dist_step(cfg, m, kernel="packed")
-        f_o, _ = step(*si(data))
-        np.testing.assert_allclose(
-            gf(f_o), np.asarray(f_r), rtol=0, atol=1e-12,
-            err_msg=f"ns={ns} nx={nx} nzm={nzm} ndev={ndev}")
+
+def test_hopper_smem_fits_production_slice():
+    """One production slice (nx=32, nzm=57) fits a block's shared memory in
+    f32 and f64; a much wider slice is rejected up front."""
+    from cdk.kernels.mpdata import hopper
+
+    assert hopper.smem_bytes(32, 57, 4) < hopper.SMEM_LIMIT
+    assert hopper.smem_bytes(32, 57, 8) < hopper.SMEM_LIMIT
+    assert hopper.smem_bytes(400, 57, 8) > hopper.SMEM_LIMIT
+
+
+def test_hopper_is_typed_skip_off_gpu():
+    """Off the GPU the variant raises UnsupportedConfigError (the driver's
+    typed skip) — it never falls back to an interpreter or the reference."""
+    from cdk.core.registry import UnsupportedConfigError
+    from cdk.kernels.mpdata import hopper
+
+    with pytest.raises(UnsupportedConfigError, match="needs a GPU"):
+        hopper.make_hopper_fused(SMALL)
+
+
+@pytest.mark.parametrize("cfg_over,match", [
+    ({"dtype": "bfloat16"}, "dtype"),
+    ({"nx": 400, "nz": 58, "dtype": "float64"}, "shared memory"),
+])
+def test_hopper_rejects_unsupported_configs_on_gpu(monkeypatch, cfg_over,
+                                                   match):
+    """On a GPU the dtype and the shared-memory budget still gate the
+    kernel, as typed skips."""
+    import jax
+
+    from cdk.core.registry import UnsupportedConfigError
+    from cdk.kernels.mpdata import hopper
+
+    class FakeGpu:
+        platform = "gpu"
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [FakeGpu()])
+    with pytest.raises(UnsupportedConfigError, match=match):
+        hopper.check_supported(with_overrides(SMALL, **cfg_over))
+
+
+def test_hopper_build_command_and_cache_key(tmp_path):
+    """nvcc targets Hopper's own instruction set (sm_90a) and builds the
+    sources in the repository; the output path changes with the sources."""
+    from cdk.kernels.mpdata import hopper
+
+    cmd = hopper.nvcc_command(tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[-1].endswith("mpdata_loop.cu")
+    path = hopper.library_path()
+    assert path.parent.name == "cuda" and path.parent.parent.name == "build"
+    assert path == hopper.library_path()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("geometry", HOPPER_GRID)
+def test_hopper_kernel_matches_reference_on_gpu(gpu_device, geometry, dtype):
+    from cdk.kernels.mpdata import hopper
+
+    ns, nx, nz, n = geometry
+    cfg = with_overrides(MpdataConfig(), nslices=ns, nx=nx, nz=nz,
+                         dtype=dtype)
+    data = problem.init_data(cfg)
+    f_r, flux_r = _chained_reference(data, n)
+    made = hopper.make_hopper_fused(cfg)
+    f_k, flux_k = made["loop"](data, n)
+    tol = 1e-13 if dtype == "float64" else 1e-6
+    assert rel_l1(np.asarray(f_k), f_r) < tol
+    assert rel_l1(np.asarray(flux_k), flux_r) < 10 * tol

@@ -6,14 +6,14 @@ in-process virtual mesh (conftest) cannot exercise.
 
 Each worker independently verifies the N-process dist result against its
 locally computed single-process reference at f64 (see
-cdk_tpu/dist/multiproc.py); the test asserts every worker's verdict.
+cdk/dist/multiproc.py); the test asserts every worker's verdict.
 These spawn subprocesses (~30-60 s each); the launcher strips this
 process's 8-virtual-device XLA_FLAGS pin from the worker env (workers set
 their own per-process device count)."""
 
 import pytest
 
-from cdk_tpu.dist.multiproc import launch
+from cdk.dist.multiproc import launch
 
 
 def _launch(kernel, **kw):
@@ -41,10 +41,9 @@ def test_three_process_uneven_devices_mpdata():
 
 
 def test_three_process_ring_dss():
-    """3 processes x 1 device on the ring-DSS kstep loop: every halo-group
-    ppermute of GLL edge columns crosses a real process boundary — the
-    communication pattern closest to HOMME's DSS in the true multi-host
-    runtime (VERDICT r3 missing #2)."""
+    """3 processes x 1 device on the ring-DSS loop: every ppermute of GLL
+    edge columns crosses a real process boundary — the communication
+    pattern closest to HOMME's DSS in the multi-controller runtime."""
     verdicts = _launch("biharmonic_dss", nproc=3, steps=8,
                        devices_per_proc=1)
     for v in verdicts:

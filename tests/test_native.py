@@ -5,15 +5,15 @@ the role the reference's in-run CPU references and yakl_check play
 import numpy as np
 import pytest
 
-from cdk_tpu.core import native
-from cdk_tpu.core.config import (
+from cdk.core import native
+from cdk.core.config import (
     BiharmonicConfig,
     CkeConfig,
     MpdataConfig,
     with_overrides,
 )
-from cdk_tpu.core.frng import Lcg
-from cdk_tpu.core.norms import pointwise_check, rel_l1, rel_l2
+from cdk.core.frng import Lcg
+from cdk.core.norms import pointwise_check, rel_l1, rel_l2
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
@@ -40,7 +40,7 @@ def test_pad_lanes():
 
 
 def test_biharmonic_cpp_oracle():
-    from cdk_tpu.kernels.biharmonic import problem, reference
+    from cdk.kernels.biharmonic import problem, reference
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=4, nlev=6, qsize=3)
     data = problem.init_data(cfg)
@@ -50,7 +50,7 @@ def test_biharmonic_cpp_oracle():
 
 
 def test_cke_cpp_oracle():
-    from cdk_tpu.kernels.cke import problem, reference
+    from cdk.kernels.cke import problem, reference
 
     cfg = with_overrides(CkeConfig(), nedges=64, ncells=20, nvertlevels=9)
     data = problem.init_data(cfg)
@@ -60,7 +60,7 @@ def test_cke_cpp_oracle():
 
 
 def test_mpdata_cpp_oracle():
-    from cdk_tpu.kernels.mpdata import problem, reference
+    from cdk.kernels.mpdata import problem, reference
 
     cfg = with_overrides(MpdataConfig(), nslices=4, nx=8, nz=10)
     data = problem.init_data(cfg)
@@ -85,8 +85,8 @@ def test_native_bench_driver_runs():
 
 
 def test_cpp_biharmonic_dss_oracle_matches_jnp():
-    from cdk_tpu.core.config import BiharmonicConfig, with_overrides
-    from cdk_tpu.kernels.biharmonic import dss, problem
+    from cdk.core.config import BiharmonicConfig, with_overrides
+    from cdk.kernels.biharmonic import dss, problem
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=5, nlev=3, qsize=2)
     data = problem.init_data(cfg)
@@ -96,8 +96,8 @@ def test_cpp_biharmonic_dss_oracle_matches_jnp():
 
 
 def test_cpp_biharmonic_dss2d_oracle_matches_jnp():
-    from cdk_tpu.core.config import BiharmonicConfig, with_overrides
-    from cdk_tpu.kernels.biharmonic import dss2d, problem
+    from cdk.core.config import BiharmonicConfig, with_overrides
+    from cdk.kernels.biharmonic import dss2d, problem
 
     cfg = with_overrides(BiharmonicConfig(), nelemd=12, nlev=3, qsize=2)
     data = problem.init_data(cfg)

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cdk_tpu.core.config import MpdataConfig, CkeConfig, with_overrides
-from cdk_tpu.kernels.cke import problem as cke_problem, reference as cke_ref
-from cdk_tpu.kernels.mpdata import problem, reference
+from cdk.core.config import MpdataConfig, CkeConfig, with_overrides
+from cdk.kernels.cke import problem as cke_problem, reference as cke_ref
+from cdk.kernels.mpdata import problem, reference
 
 CFG = with_overrides(MpdataConfig(), nslices=2, nx=6, nz=8)
 
@@ -69,7 +69,7 @@ def test_mpdata_vmap_over_problems():
 
 
 def test_namelist_roundtrip_shipped_values():
-    from cdk_tpu.core.config import cke_config_from_namelist
+    from cdk.core.config import cke_config_from_namelist
 
     cfg = cke_config_from_namelist("configs/nested.nml")
     assert (cfg.niters, cfg.nedges, cfg.ncells, cfg.nvertlevels, cfg.nadv) \
@@ -90,9 +90,9 @@ def test_dss2d_is_linear_and_differentiable():
     """The torus-DSS biharmonic is linear in qtens (fixed geometry): jvp
     equals the primal difference exactly, and grad is finite/nonzero —
     the adjoint-capability layer extends to the DSS-coupled families."""
-    from cdk_tpu.core.config import BiharmonicConfig
-    from cdk_tpu.kernels.biharmonic import problem as bi_problem
-    from cdk_tpu.kernels.biharmonic.dss2d import (
+    from cdk.core.config import BiharmonicConfig
+    from cdk.kernels.biharmonic import problem as bi_problem
+    from cdk.kernels.biharmonic.dss2d import (
         biharmonic_wk_dss2d_reference,
         torus_shape,
     )
